@@ -9,7 +9,8 @@ Phases, each printed as one JSON line:
            reports the time and the compiler's register/spill lines;
   kernels  holds each kernel against its plain PyTorch version on the card,
            on seeded random inputs at the shapes of the main path and at an
-           odd shape, and times both with CUDA events;
+           odd shape, times both with CUDA events, and reports the kernel's
+           launch plan and resident blocks per SM;
   slice    drives the main path: the RRTM single-column model at T42 width
            (64 x 128 columns, 25 levels, float32, RRTMG-SW + grey LW) through
            ColumnModel.run; compares 3 steps with the same 3 steps on the CPU
@@ -136,7 +137,9 @@ def check_sw_flux(name, batch, L, cloudy):
         ok = ok and excess <= 0.0
     B = int(np.prod(batch))
     bound_ms, bound_by = sw_flux_bound_ms(B, L, 112, cloudy)
-    case = dict(case=name, shape=[B, L, 112], cloudy=cloudy,
+    plan = rrtmg_sw.sw_flux_plan(L, 112, 4)
+    case = dict(case=name, shape=[B, L, 112], cloudy=cloudy, plan=plan._asdict(),
+                blocks_per_sm=rrtmg_sw.sw_flux_blocks_per_sm(L, 112, torch.float32, cloudy),
                 max_abs_err=max(errs.values()), errs=errs, rtol=rtol, atol=atol,
                 ms=cuda_time_ms(kernel), plain_ms=cuda_time_ms(plain),
                 bound_ms=bound_ms, bound_us=1e3 * bound_ms, bound_by=bound_by, ok=ok)

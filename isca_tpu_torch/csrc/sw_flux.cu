@@ -10,32 +10,54 @@
 // Outputs swd, swu, dird are (B, L+1). The plain PyTorch version of the same
 // function is sw_flux_solve_reference in physics/rrtmg_sw.py.
 //
-// Bound on an H100 (3.35 TB/s, 67 TFLOP/s FP32): memory. The clear variant
-// must read tau, w0 and g once, 3 x B*L*G*4 bytes, about 275 MB at T42L25
-// (B = 8192, L = 25, G = 112), about 82 us; the cloudy variant reads seven
-// such arrays, about 640 MB, about 190 us. The arithmetic is about 2 GFLOP of
-// FP32 with a handful of exp/sqrt/div per element.
+// What bounds it on an H100: instruction issue. The bytes (each input read
+// once: 3 or 7 x B*L*G*4 bytes, 0.086 ms clear and 0.196 ms cloudy at T42L25,
+// B = 8192, L = 25, G = 112, at 3.35 TB/s) take less time than issuing the
+// instructions. One evaluation of a layer's properties costs about 6 exp,
+// 1 sqrt and 9 IEEE divisions, each a sequence of SASS instructions under
+// --fmad=false. Counted in the SASS of the float32 build on the common path:
+// 303 instructions per (column, layer, g) in phase 1 (586 cloudy), 40 per
+// level and g in the up sweep and 134 in the down sweep (30 of them the
+// warp-shuffle g-sums), so about 480 in all (about 760 cloudy).
 //
-// Design:
-//  * One block per column, one thread per g-point (G = 112 padded to 128).
-//    Thread g reads x[b, l, g], so each warp's loads are contiguous along G,
-//    and every input byte comes from device memory once per sweep.
-//  * The recurrences over levels are serial per (b, g) and independent across
-//    them, so each thread keeps its carries in registers. The down sweep runs
-//    first and keeps only tdn, rdnd and the cumulative direct beam per level
-//    in shared memory (3*(L+1) values per thread, laid out [level][thread] so
-//    the accesses are free of bank conflicts); the up sweep then recomputes
-//    the layer properties from tau/w0/g (a second read that the 50 MB L2
-//    mostly serves, since a block's column is 3*L*G*4 = 34 KB) instead of
-//    storing five more arrays, and combines the fluxes level by level.
-//  * The g-sum at each level is a warp shuffle into per-warp partials in
-//    shared memory; one barrier at the end, then one thread per level adds
-//    the warps' partials and writes the three outputs, coalesced along L+1.
+// Design, against that bound: each layer's properties are computed once,
+// by every lane, and the sweeps read them from shared memory.
+//  * One block per column, `threads` threads (256), looping over g-chunks of
+//    gc = ceil(G / chunks) g-points. The launch plan (threads, chunks, shared
+//    memory bytes) comes from the wrapper (sw_flux_plan in
+//    physics/rrtmg_sw.py), which picks the fewest chunks whose shared memory
+//    fits a block, and two at least for float32 at L <= 32: this file
+//    checks the plan.
+//  * Phase 1: all threads walk the chunk's (l, g) items in flat order, so
+//    consecutive threads read consecutive addresses of x[b, l, g], and
+//    compute ref, refd, tra, trad and the direct beam of each item once
+//    (both sets and the cloud-fraction blend when cloudy) into shared memory
+//    as [5][L][w] (w = the chunk's width). This loop is the only place that
+//    evaluates the layer properties.
+//  * Up sweep, surface to top, one thread per g of the chunk (stage 2 of the
+//    TPU kernel): rup and rupd per level into shared memory as [2][L+1][w].
+//    The same thread reads them back in the down sweep, so no barrier
+//    between the sweeps.
+//  * Down sweep, top to surface, with the flux combine at each level
+//    (stage 3): a warp-shuffle g-sum into per-warp partials; after the
+//    chunk, thread l adds its level's partials in warp order to a register
+//    sum, chunk after chunk, so the result is deterministic. At the end
+//    thread l writes the three outputs of level l.
+//  * The sweeps are serial chains of divisions and shuffles over the levels
+//    on only gc threads, so they are latency-bound; more resident blocks
+//    hide them better than wider chunks do. Two chunks of 56 at the main
+//    path (40 KB of shared memory, 4 blocks per SM at 50 registers) took
+//    12% (clear) and 22% (cloudy) less time than one chunk of 112 (80.5 KB,
+//    2 blocks per SM) on an H100 (PERF.md).
+//  * Shared memory per block: ((5L + 2(L+1)) gc + 3(L+1) ceil(gc/32))
+//    values. Limits: L <= 64, G <= 128, float32 and float64; float64 at
+//    L = 64 needs two chunks of 56 (G = 112) or three of 43 (G = 128).
 //  * Built with --fmad=false so each multiply and add rounds as the plain
 //    PyTorch version's separate elementwise kernels do.
 //
 // C interface (ctypes): sw_flux_f32 / sw_flux_f64 return a cudaError_t as
 // int; the cloud pointers are null for the clear variant.
+// sw_flux_blocks_per_sm reports the occupancy of a plan.
 
 #include <cuda_runtime.h>
 
@@ -43,6 +65,8 @@ namespace {
 
 constexpr int kMaxL = 64;    // SW_FLUX_MAX_L in physics/rrtmg_sw.py
 constexpr int kMaxG = 128;   // SW_FLUX_MAX_G
+constexpr int kMaxThreads = 384;   // __launch_bounds__; sw_flux_plan uses 256
+constexpr int kMaxSmem = 232448;  // bytes a block may use on sm_90 (SW_FLUX_MAX_SMEM)
 
 __device__ __forceinline__ float dev_exp(float x) { return expf(x); }
 __device__ __forceinline__ double dev_exp(double x) { return exp(x); }
@@ -145,23 +169,15 @@ __device__ __forceinline__ Layer<T> layer_properties(T tau, T w0, T g, T mu0) {
   return out;
 }
 
-template <typename T, bool kCloudy>
-__device__ __forceinline__ Layer<T> column_layer(
-    const T* __restrict__ tau, const T* __restrict__ w0, const T* __restrict__ asy,
-    const T* __restrict__ tau_o, const T* __restrict__ w0_o,
-    const T* __restrict__ asy_o, const T* __restrict__ cf, size_t i, T mu0) {
-  Layer<T> p = layer_properties(tau[i], w0[i], asy[i], mu0);
-  if (kCloudy) {
-    const Layer<T> o = layer_properties(tau_o[i], w0_o[i], asy_o[i], mu0);
-    const T c = cf[i];
-    const T cc = T(1) - c;
-    p.ref = cc * p.ref + c * o.ref;
-    p.refd = cc * p.refd + c * o.refd;
-    p.tra = cc * p.tra + c * o.tra;
-    p.trad = cc * p.trad + c * o.trad;
-    p.dbt = cc * p.dbt + c * o.dbt;
-  }
-  return p;
+// Dynamic shared memory of one block for a chunk of gc g-points: the chunk's
+// layer properties [5][L][gc], rup and rupd [2][L+1][gc], and the per-warp
+// partial g-sums [L+1][3][ceil(gc/32)]. sw_flux_smem_bytes in
+// physics/rrtmg_sw.py computes the same.
+template <typename T>
+size_t smem_bytes(int L, int gc) {
+  const size_t sweep_warps = (gc + 31) / 32;
+  return sizeof(T) * ((5 * static_cast<size_t>(L) + 2 * static_cast<size_t>(L + 1)) * gc +
+                      3 * static_cast<size_t>(L + 1) * sweep_warps);
 }
 
 template <typename T>
@@ -171,121 +187,208 @@ __device__ __forceinline__ T warp_sum(T v) {
   return v;
 }
 
-// grid: one block per column; block: G rounded up to a multiple of 32.
-// Dynamic shared memory: 3*(L+1)*blockDim + 3*(L+1)*nwarps values of T.
+// grid: one block per column; block: `threads` (a multiple of 32, >= gc and
+// > L) threads; dynamic shared memory: smem_bytes<T>(L, gc).
 template <typename T, bool kCloudy>
-__global__ void __launch_bounds__(kMaxG) sw_flux_kernel(
+__global__ void __launch_bounds__(kMaxThreads) sw_flux_kernel(
     const T* __restrict__ tau, const T* __restrict__ w0, const T* __restrict__ asy,
     const T* __restrict__ tau_o, const T* __restrict__ w0_o,
     const T* __restrict__ asy_o, const T* __restrict__ cf,
     const T* __restrict__ mu0, const T* __restrict__ alb_dir,
     const T* __restrict__ alb_dif, const T* __restrict__ zinc,
-    T* __restrict__ swd, T* __restrict__ swu, T* __restrict__ dird, int L, int G) {
+    T* __restrict__ swd, T* __restrict__ swu, T* __restrict__ dird,
+    int L, int G, int gc) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
+  T* s_prop = reinterpret_cast<T*>(smem_raw);  // [5][L][w]
+  T* s_rup = s_prop + 5 * L * gc;              // [L+1][w]
+  T* s_rupd = s_rup + (L + 1) * gc;            // [L+1][w]
+  T* s_part = s_rupd + (L + 1) * gc;           // [L+1][3][sweep_warps]
   const int nt = blockDim.x;
-  const int nwarps = nt >> 5;
   const int t = threadIdx.x;
   const int lane = t & 31, warp = t >> 5;
+  const int sweep_warps = (gc + 31) >> 5;
   const int b = blockIdx.x;
-  const bool active = t < G;
-
-  T* s_tdn = smem;                       // [L+1][nt]
-  T* s_rdnd = s_tdn + (L + 1) * nt;      // [L+1][nt]
-  T* s_tdb = s_rdnd + (L + 1) * nt;      // [L+1][nt]
-  T* s_red = s_tdb + (L + 1) * nt;       // [L+1][3][nwarps]
-
   const T mu = mu0[b];
-  const size_t col = static_cast<size_t>(b) * L * G + t;
-  // Threads past G carry a transparent dummy layer and zero weight.
-  auto layer = [&](int l) -> Layer<T> {
-    if (!active) return Layer<T>{T(0), T(0), T(1), T(1), T(1)};
-    return column_layer<T, kCloudy>(tau, w0, asy, tau_o, w0_o, asy_o, cf,
-                                    col + static_cast<size_t>(l) * G, mu);
-  };
+  const size_t col = static_cast<size_t>(b) * L * G;
 
-  // ---- down sweep (top -> surface): tdn, rdnd, cumulative direct beam ----
-  T tdn = T(1), rdnd = T(0), tdb = T(1);
-  s_tdn[t] = tdn;
-  s_rdnd[t] = rdnd;
-  s_tdb[t] = tdb;
-  for (int l = 0; l < L; ++l) {
-    const Layer<T> p = layer(l);
-    const T reflect = T(1) / (T(1) - p.refd * rdnd);
-    const T tdn_new = tdb * p.tra + (p.trad * ((tdn - tdb) + tdb * p.ref * rdnd)) * reflect;
-    rdnd = p.refd + p.trad * p.trad * rdnd * reflect;
-    tdn = tdn_new;
-    tdb = tdb * p.dbt;
-    s_tdn[(l + 1) * nt + t] = tdn;
-    s_rdnd[(l + 1) * nt + t] = rdnd;
-    s_tdb[(l + 1) * nt + t] = tdb;
+  // thread t <= L sums level t over the chunks
+  T acc_d = T(0), acc_u = T(0), acc_b = T(0);
+
+  for (int g0 = 0; g0 < G; g0 += gc) {
+    const int w = min(gc, G - g0);
+    const int n = L * w;
+
+    // ---- phase 1: every layer's properties, once, on every thread ----
+    // Item i is (l, g) = (i / w, i % w) at x[b, l, g0 + g]; a step of nt
+    // items moves dx elements and dg g-points, one row more on a wrap.
+    int g = t % w;
+    size_t x = col + static_cast<size_t>(t / w) * G + g0 + g;
+    const int dg = nt % w;
+    const size_t dx = static_cast<size_t>(nt / w) * G + dg;
+    // not unrolled: by 2 it spilled at float64 and ran 3% slower at float32
+#pragma unroll 1
+    for (int i = t; i < n; i += nt) {
+      Layer<T> p = layer_properties(tau[x], w0[x], asy[x], mu);
+      if (kCloudy) {
+        const Layer<T> o = layer_properties(tau_o[x], w0_o[x], asy_o[x], mu);
+        const T c = cf[x];
+        const T cc = T(1) - c;
+        p.ref = cc * p.ref + c * o.ref;
+        p.refd = cc * p.refd + c * o.refd;
+        p.tra = cc * p.tra + c * o.tra;
+        p.trad = cc * p.trad + c * o.trad;
+        p.dbt = cc * p.dbt + c * o.dbt;
+      }
+      s_prop[i] = p.ref;
+      s_prop[n + i] = p.refd;
+      s_prop[2 * n + i] = p.tra;
+      s_prop[3 * n + i] = p.trad;
+      s_prop[4 * n + i] = p.dbt;
+      x += dx;
+      g += dg;
+      if (g >= w) {
+        g -= w;
+        x += G - w;
+      }
+    }
+    __syncthreads();
+
+    if (warp < sweep_warps) {
+      const bool active = t < w;
+      const size_t bg = static_cast<size_t>(b) * G + g0 + t;
+      const T* s_ref = s_prop;
+      const T* s_refd = s_prop + n;
+      const T* s_tra = s_prop + 2 * n;
+      const T* s_trad = s_prop + 3 * n;
+      const T* s_dbt = s_prop + 4 * n;
+
+      // ---- up sweep (surface -> top): rup, rupd per level ----
+      if (active) {
+        T rup = alb_dir[bg], rupd = alb_dif[bg];
+        s_rup[L * w + t] = rup;
+        s_rupd[L * w + t] = rupd;
+        for (int l = L - 1; l >= 0; --l) {
+          const int j = l * w + t;
+          const T ref = s_ref[j], refd = s_refd[j], tra = s_tra[j];
+          const T trad = s_trad[j], dbt = s_dbt[j];
+          const T reflect = T(1) / (T(1) - rupd * refd);
+          const T rup_new = ref + (trad * ((tra - dbt) * rupd + dbt * rup)) * reflect;
+          rupd = refd + trad * trad * rupd * reflect;
+          rup = rup_new;
+          s_rup[j] = rup;
+          s_rupd[j] = rupd;
+        }
+      }
+
+      // ---- down sweep (top -> surface) with the flux combine per level ----
+      // Lanes past the chunk's width add zeros to the warp sums.
+      const T z = active ? zinc[bg] : T(0);
+      T tdn = T(1), rdnd = T(0), tdb = T(1);
+      for (int l = 0;; ++l) {
+        T vd = T(0), vu = T(0), vb = T(0);
+        if (active) {
+          const T rup = s_rup[l * w + t], rupd = s_rupd[l * w + t];
+          const T reflect = T(1) / (T(1) - rdnd * rupd);
+          vu = z * ((tdb * rup + (tdn - tdb) * rupd) * reflect);
+          vd = z * (tdb + (tdn - tdb + tdb * rup * rdnd) * reflect);
+          vb = z * tdb;
+        }
+        vd = warp_sum(vd);
+        vu = warp_sum(vu);
+        vb = warp_sum(vb);
+        if (lane == 0) {
+          s_part[(l * 3 + 0) * sweep_warps + warp] = vd;
+          s_part[(l * 3 + 1) * sweep_warps + warp] = vu;
+          s_part[(l * 3 + 2) * sweep_warps + warp] = vb;
+        }
+        if (l == L) break;
+        if (active) {
+          const int j = l * w + t;
+          const T ref = s_ref[j], refd = s_refd[j], tra = s_tra[j];
+          const T trad = s_trad[j], dbt = s_dbt[j];
+          const T reflect = T(1) / (T(1) - refd * rdnd);
+          const T tdn_new = tdb * tra + (trad * ((tdn - tdb) + tdb * ref * rdnd)) * reflect;
+          rdnd = refd + trad * trad * rdnd * reflect;
+          tdn = tdn_new;
+          tdb = tdb * dbt;
+        }
+      }
+    }
+    __syncthreads();
+
+    if (t <= L) {
+      T sd = T(0), su = T(0), sb = T(0);
+      for (int k = 0; k < sweep_warps; ++k) {
+        sd += s_part[(t * 3 + 0) * sweep_warps + k];
+        su += s_part[(t * 3 + 1) * sweep_warps + k];
+        sb += s_part[(t * 3 + 2) * sweep_warps + k];
+      }
+      acc_d += sd;
+      acc_u += su;
+      acc_b += sb;
+    }
+    // The next chunk overwrites s_part only after the barrier that ends its
+    // phase 1, so this read needs no barrier of its own.
   }
 
-  // ---- up sweep (surface -> top) with the flux combine at each level ----
-  const size_t bg = static_cast<size_t>(b) * G + t;
-  const T z = active ? zinc[bg] : T(0);
-  T rup = active ? alb_dir[bg] : T(0);
-  T rupd = active ? alb_dif[bg] : T(0);
-  for (int l = L;; --l) {
-    if (l < L) {
-      const Layer<T> p = layer(l);
-      const T reflect = T(1) / (T(1) - rupd * p.refd);
-      const T rup_new = p.ref + (p.trad * ((p.tra - p.dbt) * rupd + p.dbt * rup)) * reflect;
-      rupd = p.refd + p.trad * p.trad * rupd * reflect;
-      rup = rup_new;
-    }
-    const T dn = s_tdn[l * nt + t];
-    const T rd = s_rdnd[l * nt + t];
-    const T db = s_tdb[l * nt + t];
-    const T reflect = T(1) / (T(1) - rd * rupd);
-    const T fu = (db * rup + (dn - db) * rupd) * reflect;
-    const T fd = db + (dn - db + db * rup * rd) * reflect;
-    const T sd = warp_sum(z * fd);
-    const T su = warp_sum(z * fu);
-    const T sb = warp_sum(z * db);
-    if (lane == 0) {
-      s_red[(l * 3 + 0) * nwarps + warp] = sd;
-      s_red[(l * 3 + 1) * nwarps + warp] = su;
-      s_red[(l * 3 + 2) * nwarps + warp] = sb;
-    }
-    if (l == 0) break;
+  if (t <= L) {
+    const size_t o = static_cast<size_t>(b) * (L + 1) + t;
+    swd[o] = acc_d;
+    swu[o] = acc_u;
+    dird[o] = acc_b;
   }
-  __syncthreads();
+}
 
-  for (int l = t; l <= L; l += nt) {
-    T sd = T(0), su = T(0), sb = T(0);
-    for (int w = 0; w < nwarps; ++w) {
-      sd += s_red[(l * 3 + 0) * nwarps + w];
-      su += s_red[(l * 3 + 1) * nwarps + w];
-      sb += s_red[(l * 3 + 2) * nwarps + w];
-    }
-    const size_t o = static_cast<size_t>(b) * (L + 1) + l;
-    swd[o] = sd;
-    swu[o] = su;
-    dird[o] = sb;
-  }
+template <typename T>
+auto kernel_of(bool cloudy) {
+  return cloudy ? sw_flux_kernel<T, true> : sw_flux_kernel<T, false>;
+}
+
+// The launch plan's checks; 0 or cudaErrorInvalidValue.
+template <typename T>
+int check_plan(int L, int G, int threads, int chunks, int smem) {
+  if (L < 1 || L > kMaxL || G < 1 || G > kMaxG) return cudaErrorInvalidValue;
+  if (chunks < 1 || chunks > G) return cudaErrorInvalidValue;
+  const int gc = (G + chunks - 1) / chunks;
+  if ((chunks - 1) * gc >= G) return cudaErrorInvalidValue;  // an empty chunk
+  if (threads % 32 != 0 || threads < gc || threads <= L || threads > kMaxThreads)
+    return cudaErrorInvalidValue;
+  if (smem < 0 || static_cast<size_t>(smem) != smem_bytes<T>(L, gc) || smem > kMaxSmem)
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
 }
 
 template <typename T>
 int launch(const T* tau, const T* w0, const T* asy, const T* tau_o, const T* w0_o,
            const T* asy_o, const T* cf, const T* mu0, const T* alb_dir,
            const T* alb_dif, const T* zinc, T* swd, T* swu, T* dird,
-           int B, int L, int G, cudaStream_t stream) {
-  if (B < 1 || L < 1 || L > kMaxL || G < 1 || G > kMaxG) return cudaErrorInvalidValue;
+           int B, int L, int G, int threads, int chunks, int smem,
+           cudaStream_t stream) {
+  if (B < 1) return cudaErrorInvalidValue;
+  if (int err = check_plan<T>(L, G, threads, chunks, smem)) return err;
   const bool cloudy = tau_o != nullptr;
   if (cloudy && (w0_o == nullptr || asy_o == nullptr || cf == nullptr))
     return cudaErrorInvalidValue;
-  const int threads = (G + 31) / 32 * 32;
-  const int nwarps = threads / 32;
-  const size_t smem = (3 * static_cast<size_t>(L + 1) * threads +
-                       3 * static_cast<size_t>(L + 1) * nwarps) * sizeof(T);
-  auto kernel = cloudy ? sw_flux_kernel<T, true> : sw_flux_kernel<T, false>;
+  const int gc = (G + chunks - 1) / chunks;
+  auto kernel = kernel_of<T>(cloudy);
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   kernel<<<B, threads, smem, stream>>>(tau, w0, asy, tau_o, w0_o, asy_o, cf, mu0,
-                                       alb_dir, alb_dif, zinc, swd, swu, dird, L, G);
+                                       alb_dir, alb_dif, zinc, swd, swu, dird,
+                                       L, G, gc);
   return cudaGetLastError();
+}
+
+template <typename T>
+int blocks_per_sm(bool cloudy, int L, int G, int threads, int chunks, int smem,
+                  int* blocks) {
+  if (int err = check_plan<T>(L, G, threads, chunks, smem)) return err;
+  auto kernel = kernel_of<T>(cloudy);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, threads, smem);
 }
 
 }  // namespace
@@ -296,9 +399,10 @@ int sw_flux_f32(const float* tau, const float* w0, const float* asy,
                 const float* tau_o, const float* w0_o, const float* asy_o,
                 const float* cf, const float* mu0, const float* alb_dir,
                 const float* alb_dif, const float* zinc, float* swd, float* swu,
-                float* dird, int B, int L, int G, void* stream) {
+                float* dird, int B, int L, int G, int threads, int chunks,
+                int smem, void* stream) {
   return launch<float>(tau, w0, asy, tau_o, w0_o, asy_o, cf, mu0, alb_dir, alb_dif,
-                       zinc, swd, swu, dird, B, L, G,
+                       zinc, swd, swu, dird, B, L, G, threads, chunks, smem,
                        static_cast<cudaStream_t>(stream));
 }
 
@@ -306,10 +410,19 @@ int sw_flux_f64(const double* tau, const double* w0, const double* asy,
                 const double* tau_o, const double* w0_o, const double* asy_o,
                 const double* cf, const double* mu0, const double* alb_dir,
                 const double* alb_dif, const double* zinc, double* swd,
-                double* swu, double* dird, int B, int L, int G, void* stream) {
+                double* swu, double* dird, int B, int L, int G, int threads,
+                int chunks, int smem, void* stream) {
   return launch<double>(tau, w0, asy, tau_o, w0_o, asy_o, cf, mu0, alb_dir, alb_dif,
-                        zinc, swd, swu, dird, B, L, G,
+                        zinc, swd, swu, dird, B, L, G, threads, chunks, smem,
                         static_cast<cudaStream_t>(stream));
+}
+
+// Resident blocks per SM of the plan (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+// into *blocks; returns a cudaError_t as int.
+int sw_flux_blocks_per_sm(int f64, int cloudy, int L, int G, int threads, int chunks,
+                          int smem, int* blocks) {
+  return f64 ? blocks_per_sm<double>(cloudy != 0, L, G, threads, chunks, smem, blocks)
+             : blocks_per_sm<float>(cloudy != 0, L, G, threads, chunks, smem, blocks);
 }
 
 const char* sw_flux_error_string(int err) {

@@ -22,6 +22,7 @@ from isca_tpu_torch.dycore import press_geopot as pgm
 from isca_tpu_torch.dycore import vert_coordinate as vc
 from isca_tpu_torch.dycore.time_integration import TwoLevel, leapfrog
 from isca_tpu_torch.physics.moist_driver import MoistPhysics, MoistPhysicsConfig
+from isca_tpu_torch.utils.validity import check_range
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,6 +39,7 @@ class ColumnConfig:
     initial_sphum: float = 2.0e-6
     t_surf_init: float = 285.0
     ps: float = 1.0e5
+    valid_range_t: tuple = (100.0, 500.0)
     physics: MoistPhysicsConfig = MoistPhysicsConfig()
     constants: Constants = EARTH
     dtype: Any = torch.float32
@@ -70,6 +72,17 @@ class ColumnModel:
         ph, lph, pf, lpf = pgm.pressure_variables(self.pk, self.bk, ps, self.top_is_zero)
         self.p_half, self.p_full = ph, pf
         self.ln_p_half, self.ln_p_full = lph, lpf
+
+    # valid_range_t guard (column variant; level-last layout)
+    validity_name = "temperature"
+
+    @property
+    def validity_range(self):
+        return self.config.valid_range_t
+
+    def validity(self, state: ColumnState):
+        lo, hi = self.config.valid_range_t
+        return check_range(state.t.curr, lo, hi)
 
     def _full(self, shape, value, dtype=None):
         return torch.full(shape, value, dtype=dtype or self.config.dtype,

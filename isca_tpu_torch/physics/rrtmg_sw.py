@@ -595,9 +595,43 @@ def sw_flux_solve_reference(tau, w0, g, mu0, alb_dir_g, alb_dif_g, zincflx,
     return wsum(fd), wsum(fu), wsum(tdbt)
 
 
-# Limits of csrc/sw_flux.cu (kMaxL, kMaxG there).
+# Limits of csrc/sw_flux.cu (kMaxL, kMaxG, kMaxSmem there).
 SW_FLUX_MAX_L = 64
 SW_FLUX_MAX_G = 128
+SW_FLUX_MAX_SMEM = 232448       # bytes of shared memory a block may use on sm_90
+SW_FLUX_THREADS = 256
+# Fewest g-chunks for float32 at L <= 32 (the main path's T42L25 shape):
+# more resident blocks hide the serial sweeps better (csrc/sw_flux.cu).
+SW_FLUX_SHALLOW_F32_CHUNKS = 2
+
+
+class SwFluxPlan(NamedTuple):
+    """Launch plan of csrc/sw_flux.cu: threads per block (one block per
+    column), g-chunks per column, and dynamic shared memory per block."""
+    threads: int
+    chunks: int
+    smem_bytes: int
+
+
+def sw_flux_smem_bytes(L, gc, itemsize):
+    """Shared memory of one block for chunks of gc g-points, as smem_bytes in
+    csrc/sw_flux.cu: layer properties [5][L][gc], rup and rupd
+    [2][L+1][gc], per-warp partial g-sums [L+1][3][ceil(gc/32)]."""
+    return itemsize * ((5 * L + 2 * (L + 1)) * gc + 3 * (L + 1) * -(-gc // 32))
+
+
+def sw_flux_plan(L, G, itemsize) -> SwFluxPlan:
+    """The fewest g-chunks (at least SW_FLUX_SHALLOW_F32_CHUNKS for float32
+    at L <= 32) whose shared memory fits one block; each chunk but the last
+    holds ceil(G / chunks) g-points and none is empty."""
+    if not (1 <= L <= SW_FLUX_MAX_L and 1 <= G <= SW_FLUX_MAX_G):
+        raise ValueError(f"sw_flux_solve: L={L}, G={G} outside the kernel's "
+                         f"limits L<={SW_FLUX_MAX_L}, G<={SW_FLUX_MAX_G}")
+    chunks = SW_FLUX_SHALLOW_F32_CHUNKS if itemsize == 4 and L <= 32 else 1
+    while sw_flux_smem_bytes(L, -(-G // chunks), itemsize) > SW_FLUX_MAX_SMEM:
+        chunks += 1
+    gc = -(-G // chunks)
+    return SwFluxPlan(SW_FLUX_THREADS, -(-G // gc), sw_flux_smem_bytes(L, gc, itemsize))
 
 
 @functools.cache
@@ -607,11 +641,31 @@ def _sw_flux_lib():
     lib = _build.load("sw_flux")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.sw_flux_f32, lib.sw_flux_f64):
-        fn.argtypes = [ptr] * 14 + [i32, i32, i32, ptr]
+        fn.argtypes = [ptr] * 14 + [i32] * 6 + [ptr]
         fn.restype = i32
+    lib.sw_flux_blocks_per_sm.argtypes = [i32] * 7 + [ctypes.POINTER(i32)]
+    lib.sw_flux_blocks_per_sm.restype = i32
     lib.sw_flux_error_string.argtypes = [i32]
     lib.sw_flux_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _sw_flux_check(lib, rc, what):
+    if rc != 0:
+        raise RuntimeError(f"sw_flux {what} failed: CUDA error {rc} "
+                           f"({lib.sw_flux_error_string(rc).decode()})")
+
+
+def sw_flux_blocks_per_sm(L, G, dtype, cloudy) -> int:
+    """Blocks of the kernel resident on one SM of the current CUDA device
+    under sw_flux_plan's plan, as the CUDA occupancy calculator gives them."""
+    plan = sw_flux_plan(L, G, dtype.itemsize)
+    lib = _sw_flux_lib()
+    blocks = ctypes.c_int(0)
+    _sw_flux_check(lib, lib.sw_flux_blocks_per_sm(
+        int(dtype.itemsize == 8), int(cloudy), L, G, *plan, ctypes.byref(blocks)),
+        "occupancy query")
+    return blocks.value
 
 
 def sw_flux_solve(tau, w0, g, mu0, alb_dir_g, alb_dif_g, zincflx, cloud=None):
@@ -635,9 +689,7 @@ def sw_flux_solve(tau, w0, g, mu0, alb_dir_g, alb_dif_g, zincflx, cloud=None):
     if tau.dim() < 2:
         raise ValueError(f"sw_flux_solve: tau must be (..., L, G), got {tuple(tau.shape)}")
     batch, (L, G) = tuple(tau.shape[:-2]), tau.shape[-2:]
-    if not (1 <= L <= SW_FLUX_MAX_L and 1 <= G <= SW_FLUX_MAX_G):
-        raise ValueError(f"sw_flux_solve: L={L}, G={G} outside the kernel's "
-                         f"limits L<={SW_FLUX_MAX_L}, G<={SW_FLUX_MAX_G}")
+    plan = sw_flux_plan(L, G, tau.element_size())
     B = math.prod(batch)
     if B == 0:
         raise ValueError("sw_flux_solve: empty batch")
@@ -671,10 +723,8 @@ def sw_flux_solve(tau, w0, g, mu0, alb_dir_g, alb_dif_g, zincflx, cloud=None):
         rc = fn(tau.data_ptr(), w0.data_ptr(), g.data_ptr(), *cloud_ptrs,
                 mu0.data_ptr(), alb_dir_g.data_ptr(), alb_dif_g.data_ptr(),
                 zincflx.data_ptr(), swd.data_ptr(), swu.data_ptr(),
-                dird.data_ptr(), B, L, G, stream)
-    if rc != 0:
-        raise RuntimeError(f"sw_flux kernel launch failed: CUDA error {rc} "
-                           f"({lib.sw_flux_error_string(rc).decode()})")
+                dird.data_ptr(), B, L, G, *plan, stream)
+    _sw_flux_check(lib, rc, "kernel launch")
     sw_flux_solve.launches += 1
     return swd, swu, dird
 

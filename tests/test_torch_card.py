@@ -23,10 +23,9 @@ pytestmark = pytest.mark.skipif(
     reason="needs a CUDA device: the sw_flux kernel has no CPU mode")
 
 
-def solve_inputs(cloudy, batch, L, dtype, seed=7):
+def solve_inputs(cloudy, batch, L, dtype, seed=7, G=112):
     """Random solve inputs as tests/test_rrtmg_sw.py TestPallasSolver._inputs."""
     rng = np.random.default_rng(seed)
-    G = 112
     c = lambda x: torch.as_tensor(np.asarray(x, dtype), device="cuda")
     tau = rng.gamma(1.5, 0.08, batch + (L, G))
     args = [c(tau), c(rng.uniform(0.0, 1.0, batch + (L, G))),
@@ -44,11 +43,8 @@ def solve_inputs(cloudy, batch, L, dtype, seed=7):
     return args, cloud
 
 
-@pytest.mark.parametrize("cloudy", [False, True])
-@pytest.mark.parametrize("dtype", [np.float32, np.float64])
-@pytest.mark.parametrize("batch,L", [((37,), 25), ((3, 5), 64), ((1,), 1)])
-def test_sw_flux_kernel_matches_plain(cloudy, dtype, batch, L):
-    args, cloud = solve_inputs(cloudy, batch, L, dtype)
+def check_kernel_matches_plain(cloudy, dtype, batch, L, G=112):
+    args, cloud = solve_inputs(cloudy, batch, L, dtype, G=G)
     before = P.sw_flux_solve.launches
     out = P.sw_flux_solve(*args, cloud=cloud)
     torch.cuda.synchronize()
@@ -61,6 +57,31 @@ def test_sw_flux_kernel_matches_plain(cloudy, dtype, batch, L):
     for a, b in zip(out, ref):
         assert a.shape == batch + (L + 1,) and a.dtype == b.dtype
         np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("cloudy", [False, True])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("batch,L", [((37,), 25), ((3, 5), 64), ((1,), 1)])
+def test_sw_flux_kernel_matches_plain(cloudy, dtype, batch, L):
+    check_kernel_matches_plain(cloudy, dtype, batch, L)
+
+
+@pytest.mark.parametrize("cloudy", [False, True])
+@pytest.mark.parametrize("dtype,batch,L,G", [
+    (np.float32, (9,), 25, 33),      # a ragged last round of phase 1
+    (np.float64, (9,), 25, 33),
+    (np.float32, (5,), 64, 128),     # full chunks: 2 of 64 at float32
+    (np.float64, (5,), 64, 128),     # 3 chunks of 43, 43, 42 at float64
+    (np.float32, (11,), 40, 112),    # deeper than the main path's L = 25
+])
+def test_sw_flux_kernel_matches_plain_other_widths(cloudy, dtype, batch, L, G):
+    check_kernel_matches_plain(cloudy, dtype, batch, L, G)
+
+
+@pytest.mark.parametrize("dtype,L,G", [(torch.float32, 25, 112), (torch.float64, 64, 128)])
+def test_sw_flux_plan_is_resident(dtype, L, G):
+    for cloudy in (False, True):
+        assert P.sw_flux_blocks_per_sm(L, G, dtype, cloudy) >= 1
 
 
 def test_sw_flux_kernel_rejects_bad_inputs():
