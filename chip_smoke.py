@@ -11,13 +11,29 @@ Phases, each printed as one JSON line:
            on seeded random inputs at the shapes of the main path and at an
            odd shape, times both with CUDA events, and reports the kernel's
            launch plan and resident blocks per SM;
-  slice    drives the main path: the RRTM single-column model at T42 width
+  slice    drives the column path: the RRTM single-column model at T42 width
            (64 x 128 columns, 25 levels, float32, RRTMG-SW + grey LW) through
            ColumnModel.run; compares 3 steps with the same 3 steps on the CPU
            from an 8 x 16-column corner; times 20 more steps; counts the
            kernel launches of that run;
   profile  device time per step by kernel over 2 more steps of the slice
-           (torch.profiler), launches per step and the device's idle share.
+           (torch.profiler), launches per step and the device's idle share;
+  dycore   drives the main path: the Held-Suarez spectral dycore through
+           HeldSuarezModel.run at bench.py's configuration at full width
+           (T85: 128 x 256 grid, 86 x 87 spectral triangle, 25 levels,
+           dt = 600 s, float32) but with exact transforms
+           (transform_precision="highest"); compares 3 steps from cold start
+           with the same 3 steps on the CPU, within 3x the CPU's own
+           float32-versus-float64 difference per field; warms up one model
+           day, times 3 more one-day runs and prints ms per step, their
+           median and held_suarez_T85L25_model_days_per_day;
+  dycore_profile
+           device time per step over 2 more dycore steps (torch.profiler):
+           launches per step, idle share, the largest kernels, the device
+           time and launches of the "dft", "legendre" and "implicit" stages
+           (profiler ranges in the port; their matrix products are cuBLAS
+           calls, not kernels of this repository), and the ATen ops that
+           take most of the host's time.
 Then the `{"kernels": [...]}` summary line, the raw `nvidia-smi` name and
 power limit line, and last `{"ok": true, "device": {...}}`. Any failed phase
 raises, so the script exits non-zero and prints no last line; so does a run
@@ -294,6 +310,165 @@ def phase_profile(model, state, ms_per_step, steps=2):
                    "launches_per_step": e.count / steps} for e in top]})
 
 
+# ---------------------------------------------------------------------------
+# dycore: the Held-Suarez spectral dycore at T85L25 (the main path)
+# ---------------------------------------------------------------------------
+
+HS_STEPS_PER_DAY, HS_TIMED_DAYS, HS_COMPARE_STEPS = 144, 3, 3
+HS_FIELDS = ("ucomp", "vcomp", "temp", "ps", "vor", "div")
+# card against CPU at float32 after 3 steps: the two sum in other orders
+# (cuBLAS against the CPU's BLAS) and the float32 model amplifies rounding
+# as it does between float32 and float64, so each field is held to this
+# factor times the CPU's own float32-versus-float64 difference, measured in
+# the same run from the same cold start
+HS_TOL_FACTOR = 3.0
+HS_STAGES = ("dft", "legendre", "implicit")
+
+
+def hs_config(dtype):
+    from isca_tpu_torch.dycore.primitive import PrimitiveConfig
+    from isca_tpu_torch.models.dry import HeldSuarezConfig
+    from isca_tpu_torch.physics.hs_forcing import HSForcingConfig
+
+    return HeldSuarezConfig(
+        core=PrimitiveConfig(resolution="T85", num_levels=25, dt=600.0,
+                             transform_precision="highest", dtype=dtype),
+        forcing=HSForcingConfig())
+
+
+def hs_fields(model, state):
+    return {k: v.detach().cpu().numpy().astype(np.float64)
+            for k, v in model.diag_fields(state).items() if k in HS_FIELDS}
+
+
+def phase_dycore():
+    """The main path on the card; returns the model, its state and the
+    median ms per step."""
+    from isca_tpu_torch.models.dry import HeldSuarezModel
+
+    cpu = {}
+    for name, dtype in (("float32", torch.float32), ("float64", torch.float64)):
+        m = HeldSuarezModel(hs_config(dtype), device="cpu")
+        cpu[name] = hs_fields(m, m.run(m.initial_state(), HS_COMPARE_STEPS))
+
+    model = HeldSuarezModel(hs_config(torch.float32))
+    T = model.core.T
+    state = model.run(model.initial_state(), HS_COMPARE_STEPS)
+    gpu = hs_fields(model, state)
+    compare, ok = {}, True
+    for k in HS_FIELDS:
+        gap = float(np.abs(cpu["float32"][k] - cpu["float64"][k]).max())
+        err = float(np.abs(gpu[k] - cpu["float32"][k]).max())
+        compare[k] = {"max_abs_diff": err, "tolerance": HS_TOL_FACTOR * gap,
+                      "cpu_f32_vs_f64": gap}
+        ok = ok and err <= HS_TOL_FACTOR * gap
+    if not ok:
+        raise RuntimeError(f"dycore: card and CPU runs disagree after "
+                           f"{HS_COMPARE_STEPS} steps: {compare}")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = model.run(model.initial_state(), HS_STEPS_PER_DAY, first=True)
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for _ in range(HS_TIMED_DAYS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = model.run(state, HS_STEPS_PER_DAY, first=False)
+        torch.cuda.synchronize()
+        runs.append(1e3 * (time.perf_counter() - t0) / HS_STEPS_PER_DAY)
+    ms_per_step = statistics.median(runs)
+    finite = all(bool(torch.isfinite(x.curr).all())
+                 for x in (state.ug, state.vg, state.tg, state.psg))
+    valid = model.validity(state)
+    if not finite or not bool(valid.ok):
+        raise RuntimeError(f"dycore: state after {HS_TIMED_DAYS + 1} model days is "
+                           f"not finite or out of range (finite={finite}, "
+                           f"T in [{float(valid.vmin)}, {float(valid.vmax)}])")
+    dt = model.config.core.dt
+    core = model.config.core
+    emit({"phase": "dycore", "model": "held_suarez", "resolution": core.resolution,
+          "grid": [T.nlat, T.nlon], "spectral": list(T.spec_shape),
+          "levels": core.num_levels, "dt": dt, "dtype": str(core.dtype),
+          "transform_precision": core.transform_precision,
+          "width": "full: bench.py's T85L25 at exact transforms; depth not cut",
+          "compare_steps": HS_COMPARE_STEPS, "tolerance_factor": HS_TOL_FACTOR,
+          "compare": compare, "warmup_day_s": warmup_s, "timed_days": HS_TIMED_DAYS,
+          "steps_per_day": HS_STEPS_PER_DAY, "ms_per_step_runs": runs,
+          "ms_per_step_median": ms_per_step,
+          "metric": "held_suarez_T85L25_model_days_per_day",
+          "value": dt / (ms_per_step * 1e-3), "unit": "model-days/day (one GPU)",
+          "finite": finite, "t_range": [float(valid.vmin), float(valid.vmax)],
+          "peak_memory_mb": torch.cuda.max_memory_allocated() / 2**20})
+    return model, state, ms_per_step
+
+
+def _kernels_under(event):
+    """Device kernels launched inside a profiler range or op, recursively."""
+    out = list(event.kernels)
+    for child in event.cpu_children:
+        out += _kernels_under(child)
+    return out
+
+
+def phase_dycore_profile(model, state, ms_per_step, steps=2):
+    """Device time of `steps` dycore steps: by kernel and by stage."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        model.run(state, steps, first=False)
+        torch.cuda.synchronize()
+    # device-side kernel rows only: the ATen op rows repeat their kernels'
+    # time, and the stage ranges appear as device-side annotations too
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+               and not getattr(e, "is_user_annotation", False) and e.key not in HS_STAGES]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    stages = {}
+    for e in prof.events():
+        if e.name in HS_STAGES and e.device_type == DeviceType.CPU:
+            st = stages.setdefault(e.name, {"calls": 0, "kernels": {}})
+            st["calls"] += 1
+            for k in _kernels_under(e):
+                row = st["kernels"].setdefault(k.name[:80], [0, 0.0])
+                row[0] += 1
+                row[1] += k.duration
+    stage_rows = {}
+    for name, st in stages.items():
+        rows = sorted(st["kernels"].items(), key=lambda kv: -kv[1][1])
+        stage_rows[name] = {
+            "calls_per_step": st["calls"] / steps,
+            "device_ms_per_step": sum(r[1] for _, r in rows) / 1e3 / steps,
+            "launches_per_step": sum(r[0] for _, r in rows) / steps,
+            "kernels": [{"kernel": kname, "ms_per_step": r[1] / 1e3 / steps,
+                         "launches_per_step": r[0] / steps} for kname, r in rows[:6]]}
+    missing = set(HS_STAGES) - set(stage_rows)
+    if missing or device_ms <= 0.0:
+        raise RuntimeError(f"dycore_profile: no device time, or stages {sorted(missing)} "
+                           "not in the trace")
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]
+    # host side: ATen ops by their own CPU time (the profiler's overhead
+    # inflates these; their shares say where the host's step goes)
+    host = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CPU and e.self_cpu_time_total > 0]
+    host_top = sorted(host, key=lambda e: -e.self_cpu_time_total)[:10]
+    emit({"phase": "dycore_profile", "steps": steps,
+          "device_ms_per_step": device_ms,
+          "launches_per_step": sum(e.count for e in kernels) / steps,
+          "ms_per_step": ms_per_step,
+          "idle_share": 1.0 - device_ms / ms_per_step,
+          "stages": stage_rows,
+          "top": [{"kernel": e.key[:80], "ms_per_step": e.self_device_time_total / 1e3 / steps,
+                   "launches_per_step": e.count / steps} for e in top],
+          "host_ms_per_step_profiled": sum(e.self_cpu_time_total for e in host) / 1e3 / steps,
+          "host_top": [{"op": e.key[:60], "self_cpu_ms_per_step": e.self_cpu_time_total / 1e3 / steps,
+                        "calls_per_step": e.count / steps} for e in host_top]})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -310,6 +485,8 @@ def main():
     cases = phase_kernels()
     launches, model, state, ms_per_step = phase_slice()
     phase_profile(model, state, ms_per_step)
+    hs_model, hs_state, hs_ms = phase_dycore()
+    phase_dycore_profile(hs_model, hs_state, hs_ms)
     main_case = cases[0]                      # the main path's shape and variant
     emit({"kernels": [{
         "name": "sw_flux", "route": "cuda",

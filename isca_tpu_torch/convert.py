@@ -1,10 +1,15 @@
-"""Carries a column-model state between isca_tpu and isca_tpu_torch.
+"""Carries a model state between isca_tpu and isca_tpu_torch.
 
 A state travels as a dict of numpy arrays, so neither package imports the
-other: `t_prev`, `t_curr`, `q_prev`, `q_curr`, `u_prev`, `u_curr`, `v_prev`,
-`v_curr` (lat, lon, L), `t_surf` (lat, lon) and `time_seconds` (0-d). The
-same dict built from an isca_tpu ColumnState (np.asarray of each leaf) starts
-both packages from identical state.
+other. The same dict built from an isca_tpu state (np.asarray of each leaf)
+starts both packages from identical state.
+
+* Column model: `t_prev`, `t_curr`, `q_prev`, `q_curr`, `u_prev`, `u_curr`,
+  `v_prev`, `v_curr` (lat, lon, L), `t_surf` (lat, lon) and `time_seconds` (0-d).
+* Primitive-equation core (tracer-free): `<name>_prev` and `<name>_curr` for
+  each two-level field of PrimitiveState (PRIMITIVE_TWO_LEVEL: the complex
+  spectral vors, divs, ts (L, m, n) and lnps (m, n); the grid ug, vg, tg,
+  vorg, divg (L, lat, lon) and psg (lat, lon)), and `wg_full` (L, lat, lon).
 """
 
 from __future__ import annotations
@@ -13,6 +18,7 @@ import numpy as np
 import torch
 
 from isca_tpu_torch import resolve_device
+from isca_tpu_torch.dycore.primitive import PrimitiveState
 from isca_tpu_torch.dycore.time_integration import TwoLevel
 from isca_tpu_torch.models.column import ColumnState
 
@@ -44,4 +50,35 @@ def column_state_to_numpy(state: ColumnState) -> dict:
         out[f"{n}_curr"] = pair.curr.detach().cpu().numpy()
     out["t_surf"] = state.t_surf.detach().cpu().numpy()
     out["time_seconds"] = state.time_seconds.detach().cpu().numpy()
+    return out
+
+
+PRIMITIVE_SPECTRAL = ("vors", "divs", "ts", "lnps")
+PRIMITIVE_TWO_LEVEL = PRIMITIVE_SPECTRAL + ("ug", "vg", "tg", "psg", "vorg", "divg")
+PRIMITIVE_STATE_KEYS = tuple(
+    f"{n}_{lvl}" for n in PRIMITIVE_TWO_LEVEL for lvl in ("prev", "curr")) + ("wg_full",)
+
+
+def primitive_state_from_numpy(d, dtype=torch.float32, device=None) -> PrimitiveState:
+    """A tracer-free PrimitiveState on `device`: grid fields in `dtype`,
+    spectral fields in the complex type of the same precision."""
+    device = resolve_device(device)
+    missing = set(PRIMITIVE_STATE_KEYS) - set(d)
+    if missing:
+        raise KeyError(f"primitive state is missing {sorted(missing)}")
+    cdtype = torch.complex64 if dtype == torch.float32 else torch.complex128
+    as_t = lambda k: torch.as_tensor(np.array(d[k])).to(
+        device, cdtype if k.rsplit("_", 1)[0] in PRIMITIVE_SPECTRAL else dtype)
+    two = {n: TwoLevel(as_t(f"{n}_prev"), as_t(f"{n}_curr")) for n in PRIMITIVE_TWO_LEVEL}
+    return PrimitiveState(**two, tracers={}, spec_tracers={}, wg_full=as_t("wg_full"))
+
+
+def primitive_state_to_numpy(state: PrimitiveState) -> dict:
+    """The state as a dict of numpy arrays (keys PRIMITIVE_STATE_KEYS)."""
+    out = {}
+    for n in PRIMITIVE_TWO_LEVEL:
+        pair = getattr(state, n)
+        out[f"{n}_prev"] = pair.prev.detach().cpu().numpy()
+        out[f"{n}_curr"] = pair.curr.detach().cpu().numpy()
+    out["wg_full"] = state.wg_full.detach().cpu().numpy()
     return out

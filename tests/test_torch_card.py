@@ -1,6 +1,7 @@
 """isca_tpu_torch on a CUDA card: the sw_flux kernel against its plain
-PyTorch version, the wrapper's input checks, and the column model's use of
-the kernel. Every test here needs a CUDA device and skips without one.
+PyTorch version, the wrapper's input checks, the column model's use of the
+kernel, and the Held-Suarez model on the card against the CPU. Every test
+here needs a CUDA device and skips without one.
 
 This file imports torch, numpy and isca_tpu_torch only, so it runs where JAX
 is absent (tests/conftest.py imports JAX; skip it there):
@@ -13,7 +14,9 @@ import pytest
 import torch
 
 from isca_tpu_torch.convert import column_state_from_numpy, column_state_to_numpy
+from isca_tpu_torch.dycore.primitive import PrimitiveConfig
 from isca_tpu_torch.models import column as tcol
+from isca_tpu_torch.models.dry import HeldSuarezConfig, HeldSuarezModel
 from isca_tpu_torch.physics import rrtmg_sw as P
 from isca_tpu_torch.physics.moist_driver import MoistPhysicsConfig
 from isca_tpu_torch.physics.rrtm_radiation import RRTMConfig
@@ -123,3 +126,22 @@ def test_column_run_on_card_launches_kernel_each_step():
     np.testing.assert_allclose(out["t_curr"][..., 1:], ref["t_curr"][..., 1:], rtol=0, atol=2e-3)
     np.testing.assert_allclose(out["t_curr"][..., 0], ref["t_curr"][..., 0], rtol=0, atol=5e-2)
     np.testing.assert_allclose(out["t_surf"], ref["t_surf"], rtol=0, atol=1e-3)
+
+
+def test_held_suarez_on_card_matches_cpu():
+    """T21L8 float32, 3 steps from cold start on the card and on the CPU:
+    each field within 3x the CPU's own float32-versus-float64 difference
+    over the same steps (chip_smoke.py's dycore rule at T85L25)."""
+    def fields(dtype, device):
+        cfg = HeldSuarezConfig(core=PrimitiveConfig(resolution="T21", num_levels=8,
+                                                    dt=1200.0, dtype=dtype))
+        model = HeldSuarezModel(cfg, device=device)
+        state = model.run(model.initial_state(), 3)
+        assert state.tg.curr.device.type == torch.device(device).type
+        return {k: v.cpu().numpy().astype(np.float64) for k, v in model.diag_fields(state).items()}
+
+    gpu, cpu32, cpu64 = (fields(torch.float32, "cuda"), fields(torch.float32, "cpu"),
+                         fields(torch.float64, "cpu"))
+    for k in ("ucomp", "vcomp", "temp", "ps", "vor", "div", "omega"):
+        gap = np.abs(cpu32[k] - cpu64[k]).max()
+        assert np.abs(gpu[k] - cpu32[k]).max() <= 3.0 * gap, k
