@@ -34,6 +34,19 @@ Phases, each printed as one JSON line:
            (profiler ranges in the port; their matrix products are cuBLAS
            calls, not kernels of this repository), and the ATen ops that
            take most of the host's time.
+  experiment
+           drives both models through the run harness (Experiment) in a
+           temporary directory: the HS model of `dycore` in two chained
+           one-day segments with a daily file of ucomp, vcomp, temp and ps
+           averaged and json_logging, held to the bit (torch.equal, every
+           leaf) against one direct two-day run; checks each segment's
+           NetCDF record and steps.jsonl line; prints each segment's ms per
+           step against the `dycore` median and the direct run, the seconds
+           of each flush and restart write, the restart's size, and the
+           launches per step with and without the update of the averages.
+           Then the column model at the slice's T42 width for one day with
+           a daily temp and t_surf file: sw_flux must launch once per step,
+           and the restart must load back to the end state bit for bit.
 Then the `{"kernels": [...]}` summary line, the raw `nvidia-smi` name and
 power limit line, and last `{"ok": true, "device": {...}}`. Any failed phase
 raises, so the script exits non-zero and prints no last line; so does a run
@@ -469,6 +482,224 @@ def phase_dycore_profile(model, state, ms_per_step, steps=2):
                         "calls_per_step": e.count / steps} for e in host_top]})
 
 
+# ---------------------------------------------------------------------------
+# experiment: the run harness (Experiment, diagnostics, restarts)
+# ---------------------------------------------------------------------------
+
+EXP_FIELDS = ("ucomp", "vcomp", "temp", "ps")     # the CLI's default fields
+EXP_COLUMN = (64, 128)                             # the slice's T42 width
+
+
+def _device_launches(fn, steps):
+    """Device kernels launched per step by `steps` calls of fn (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+               and not getattr(e, "is_user_annotation", False) and e.key not in HS_STAGES]
+    return sum(e.count for e in kernels) / steps
+
+
+class _Timings:
+    """Seconds of each call of the wrapped functions, with the device
+    drained first, so a call's time is its own and not the queued steps'."""
+
+    def __init__(self):
+        self.seconds = {}
+
+    def wrap(self, key, fn):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.seconds.setdefault(key, []).append(time.perf_counter() - t0)
+            return out
+        return timed
+
+
+def _states_equal(a, b):
+    """Key paths whose leaves differ (dtype, shape or any bit)."""
+    from isca_tpu_torch.utils.tree import flatten_with_paths
+
+    fa, fb = flatten_with_paths(a), flatten_with_paths(b)
+    if [p for p, _ in fa] != [p for p, _ in fb]:
+        return ["<structure>"]
+    return [p for (p, x), (_, y) in zip(fa, fb)
+            if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(x, y)]
+
+
+def _read_nc(path):
+    from scipy.io import netcdf_file
+
+    with netcdf_file(path, "r", mmap=False) as nc:
+        return {k: np.array(v[:]) for k, v in nc.variables.items()}
+
+
+def phase_experiment(hs_model, dycore_ms):
+    """HS T85L25 through Experiment in two chained one-day segments, held to
+    the bit against one direct two-day run; then the column slice through
+    Experiment for one day, with sw_flux on its path."""
+    import tempfile
+
+    import isca_tpu_torch.experiment as experiment
+    from isca_tpu_torch.io.diag_manager import DiagManager
+
+    timings = _Timings()
+    patched = {(DiagManager, "flush"): DiagManager.flush,
+               (experiment, "save_restart"): experiment.save_restart}
+    DiagManager.flush = timings.wrap("flush", DiagManager.flush)
+    experiment.save_restart = timings.wrap("restart", experiment.save_restart)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            hs = _experiment_hs(hs_model, dycore_ms, tmp, timings)
+            col = _experiment_column(tmp, timings)
+    finally:
+        for (owner, name), fn in patched.items():
+            setattr(owner, name, fn)
+    emit({"phase": "experiment", "held_suarez": hs, "column": col})
+    return {"experiment_hs": hs["sw_flux_launches"], "experiment_column": col["sw_flux_launches"]}
+
+
+def _experiment_hs(model, dycore_ms, tmp, timings):
+    import os
+
+    from isca_tpu_torch.experiment import Experiment
+    from isca_tpu_torch.io.diag_manager import DiagManager, DiagTable
+    from isca_tpu_torch.physics import rrtmg_sw
+    from isca_tpu_torch.utils.tree import flatten_with_paths
+
+    table = DiagTable().add_file("atmos_daily", 86400)
+    for f in EXP_FIELDS:
+        table.add_field("atmos_daily", "dynamics", f, time_avg=True)
+    exp = Experiment("held_suarez_T85L25", model, table, datadir=tmp, json_logging=True)
+    walls = []
+    rrtmg_sw.sw_flux_solve.launches = 0
+    for i in (1, 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chained = exp.run(i, days=1)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    launches = rrtmg_sw.sw_flux_solve.launches
+    steps = HS_STEPS_PER_DAY
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    direct = model.run(model.initial_state(), 2 * steps)
+    torch.cuda.synchronize()
+    direct_ms = 1e3 * (time.perf_counter() - t0) / (2 * steps)
+    differ = _states_equal(chained, direct)
+    if differ:
+        again = _states_equal(direct, model.run(model.initial_state(), 2 * steps))
+        raise RuntimeError(f"experiment: chained segments differ from the direct run in "
+                           f"{differ}; two direct runs differ in {again or 'nothing'}")
+
+    # each segment wrote one finite daily record and one steps.jsonl line
+    grid = tuple(model.core.T.grid_shape)
+    L = model.config.core.num_levels
+    for i in (1, 2):
+        rundir = os.path.join(exp.datadir, f"run{i:04d}")
+        nc = _read_nc(os.path.join(rundir, "atmos_daily.nc"))
+        for f in EXP_FIELDS:
+            want = (1,) + ((L,) if f != "ps" else ()) + grid
+            if nc[f].shape != want or not np.isfinite(nc[f]).all():
+                raise RuntimeError(f"experiment: run {i} {f} has shape {nc[f].shape}, "
+                                   f"want {want}, or is not finite")
+        with open(os.path.join(rundir, "steps.jsonl")) as fh:
+            rows = [json.loads(line) for line in fh]
+        if [r["day"] for r in rows] != [float(i)]:
+            raise RuntimeError(f"experiment: run {i} steps.jsonl holds {rows}")
+    if launches:
+        raise RuntimeError(f"experiment: sw_flux launched {launches} times on the HS path")
+
+    # launches per step: the bare step against the step with the update of
+    # the daily averages (2 steps each)
+    state = direct
+    dm = DiagManager(table, np.zeros(grid[0]), np.zeros(grid[1]), outdir=tmp)
+    ds = dm.init_state(model.diag_fields(state))
+    box = {"s": state, "ds": ds}
+
+    def bare():
+        box["s"] = model.step(box["s"])
+
+    def with_update():
+        box["s"] = model.step(box["s"])
+        box["ds"] = dm.update(box["ds"], model.diag_fields(box["s"]))
+
+    bare_launches = _device_launches(bare, 2)
+    update_launches = _device_launches(with_update, 2)
+    res = os.path.join(exp.datadir, "restarts", "res0001.npz")
+    flush_s, restart_s = timings.seconds["flush"][-2:], timings.seconds["restart"][-2:]
+    seg_ms = [1e3 * w / steps for w in walls]
+    return {
+        "resolution": model.config.core.resolution, "levels": L, "grid": list(grid),
+        "dtype": str(model.config.core.dtype), "segments": 2, "days_per_segment": 1,
+        "steps_per_segment": steps, "chained_equals_direct": True,
+        "segment_ms_per_step": seg_ms,
+        "segment_ms_per_step_without_restart": [
+            1e3 * (w - r) / steps for w, r in zip(walls, restart_s)],
+        "dycore_ms_per_step": dycore_ms, "direct_ms_per_step": direct_ms,
+        "ratio_to_dycore": [m / dycore_ms for m in seg_ms],
+        "ratio_to_direct": [m / direct_ms for m in seg_ms],
+        "flush_s": flush_s, "restart_write_s": restart_s,
+        "restart_mb": os.path.getsize(res) / 1e6,
+        "restart_leaf_mb": sum(v.numel() * v.element_size()
+                               for _, v in flatten_with_paths(chained)) / 1e6,
+        "launches_per_step_bare": bare_launches,
+        "launches_per_step_with_update": update_launches,
+        "sw_flux_launches": launches,
+    }
+
+
+def _experiment_column(tmp, timings):
+    import os
+
+    from isca_tpu_torch.experiment import Experiment
+    from isca_tpu_torch.io import restart
+    from isca_tpu_torch.io.diag_manager import DiagTable
+    from isca_tpu_torch.models.column import ColumnModel
+    from isca_tpu_torch.physics import rrtmg_sw
+
+    model = ColumnModel(slice_config(*EXP_COLUMN))
+    table = DiagTable().add_file("atmos_daily", 86400)
+    for f in ("temp", "t_surf"):
+        table.add_field("atmos_daily", "dynamics", f, time_avg=True)
+    exp = Experiment("column_T42", model, table, datadir=tmp)
+    steps = int(round(86400.0 / model.config.dt))
+    torch.cuda.synchronize()
+    rrtmg_sw.sw_flux_solve.launches = 0
+    t0 = time.perf_counter()
+    state = exp.run(1, days=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = rrtmg_sw.sw_flux_solve.launches
+    if launches != steps:
+        raise RuntimeError(f"experiment: sw_flux launched {launches} times in the "
+                           f"column's {steps} steps, expected one per step")
+    res = os.path.join(exp.datadir, "restarts", "res0001.npz")
+    differ = _states_equal(restart.load_restart(res, model.initial_state()), state)
+    if differ:
+        raise RuntimeError(f"experiment: the column restart does not load back to the "
+                           f"segment's end state in {differ}")
+    nc = _read_nc(os.path.join(exp.datadir, "run0001", "atmos_daily.nc"))
+    want = (1, LEVELS) + EXP_COLUMN
+    if nc["temp"].shape != want or not np.isfinite(nc["temp"]).all():
+        raise RuntimeError(f"experiment: column temp has shape {nc['temp'].shape}, "
+                           f"want {want}, or is not finite")
+    return {"columns": list(EXP_COLUMN), "levels": LEVELS, "steps": steps,
+            "ms_per_step": 1e3 * wall / steps, "sw_flux_launches": launches,
+            "restart_round_trip": "bit for bit",
+            "flush_s": timings.seconds["flush"][-1],
+            "restart_write_s": timings.seconds["restart"][-1],
+            "restart_mb": os.path.getsize(res) / 1e6}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -487,12 +718,14 @@ def main():
     phase_profile(model, state, ms_per_step)
     hs_model, hs_state, hs_ms = phase_dycore()
     phase_dycore_profile(hs_model, hs_state, hs_ms)
+    exp_launches = phase_experiment(hs_model, hs_ms)
     main_case = cases[0]                      # the main path's shape and variant
     emit({"kernels": [{
         "name": "sw_flux", "route": "cuda",
         "source": "isca_tpu_torch/csrc/sw_flux.cu",
         "replaces": "isca_tpu/physics/rrtmg_sw.py:782",
         "launches": launches["sw_flux"],
+        "launches_by_path": {"slice": launches["sw_flux"], **exp_launches},
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],

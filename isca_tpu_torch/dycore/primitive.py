@@ -25,8 +25,7 @@ on movedim views.
 
 Not ported yet (they raise NotImplementedError): tracers (`tracer_attrs`,
 `do_water_correction`, virtual temperature from a `sphum` tracer), the
-sharded `mesh` path, transform precisions other than "highest", and the
-extended diagnostic set (`spectral_diagnostics`).
+sharded `mesh` path and transform precisions other than "highest".
 """
 
 from __future__ import annotations
@@ -228,11 +227,81 @@ class PrimitiveCore:
         dp = self.dpk[:, None, None] + self.dbk[:, None, None] * psg[None, :, :]
         return tr.area_weighted_mean(self.T, torch.sum(field * dp, dim=0)) / self.C.grav
 
-    def spectral_diagnostics(self, state, surf_geopotential=None,
-                             use_virtual_temperature: bool = False):
-        """The reference's full 'dynamics' diagnostic set: not ported yet."""
-        raise NotImplementedError(
-            "the extended diagnostic set (spectral_diagnostics) is not ported yet")
+    def spectral_diagnostics(self, state: PrimitiveState, surf_geopotential=None,
+                             use_virtual_temperature: bool = False) -> dict:
+        """The reference's full 'dynamics' diagnostic set
+        (spectral_diagnostics, spectral_dynamics.F90:1709-1860; field list
+        SURVEY.md B.2): heights/pressures, wspd, slp, eddy/covariance
+        products, per-tracer fluxes, EKE and vort_norm scalars.
+
+        All 3-D fields are level-first (L, lat, lon). slp uses the 0.006 K/m
+        standard-lapse reduction from the lowest level with sigma > 0.8.
+        """
+        C, T = self.C, self.T
+        if surf_geopotential is None:
+            surf_geopotential = getattr(self, "surf_geopotential", self._zeros(T.grid_shape))
+        u, v, t = state.ug.curr, state.vg.curr, state.tg.curr
+        psg, w = state.psg.curr, state.wg_full
+        p_half, ln_p_half, p_full, ln_p_full = self.pressure_variables(psg)
+        virt_t = t
+        if use_virtual_temperature and "sphum" in state.tracers:
+            q = state.tracers["sphum"].curr
+            virt_t = pg.virtual_temperature(t, q, C.rvgas / C.rdgas - 1.0)
+        z_full, z_half = pg.compute_geopotential(
+            C.rdgas, _lev_last(virt_t), _lev_last(ln_p_half), _lev_last(ln_p_full),
+            surf_geopotential, self.top_is_zero, p_half=_lev_last(p_half))
+        z_full = _lev_first(z_full) / C.grav
+        z_half = _lev_first(z_half) / C.grav
+
+        # sea-level pressure: reduce from the lowest level with sigma > 0.8
+        # by a 6.5->6.0 K/km standard atmosphere (spectral_dynamics.F90:1823-1835)
+        gamma = 0.006
+        expf = C.rdgas * gamma / C.grav
+        sigma = p_full / psg[None]
+        # first level with sigma > 0.8: argmax returns the first maximum, and
+        # has no CUDA kernel for bool, hence the uint8 mask
+        k_low = torch.argmax((sigma > 0.8).to(torch.uint8), dim=0)
+        t_k = torch.gather(t, 0, k_low[None])[0]
+        p_k = torch.gather(p_full, 0, k_low[None])[0]
+        t_low = t_k * (p_k / psg) ** (-expf)
+        slp = psg * ((t_low + gamma * surf_geopotential / C.grav) / t_low) ** (1.0 / expf)
+
+        # EKE: mass-weighted global eddy kinetic energy with the zonal mean
+        # (m = 0 modes) removed (spectral_dynamics.F90:1855-1862)
+        vor_s, div_s = tr.vor_div_from_uv_grid(T, u, v)
+        zero_m0 = torch.ones((T.num_fourier + 1, 1), dtype=T.dtype, device=self.device)
+        zero_m0[0] = 0.0
+        ue, ve = tr.uv_grid_from_vor_div(T, vor_s * zero_m0, div_s * zero_m0)
+        eke = self.mass_weighted_integral(0.5 * (ue**2 + ve**2), psg)
+
+        # vort_norm: max |grad vor| at the bottom level (:1842-1853)
+        vx = tr.spec_to_grid(T, tr.ddx_spec(T, vor_s[-1]))
+        vy = tr.spec_to_grid(T, tr.cos_dlat_coeffs(T, vor_s[-1]))
+        coslat = T.coslat[:, None]
+        vort_norm = torch.sqrt((vx / (T.radius * coslat)) ** 2
+                               + (vy / (T.radius * coslat)) ** 2).max()
+
+        out = {
+            "ps": psg, "ucomp": u, "vcomp": v, "temp": t,
+            "vor": state.vorg.curr, "div": state.divg.curr, "omega": w,
+            "pres_full": p_full, "pres_half": p_half,
+            "height": z_full, "height_half": z_half,
+            "wspd": torch.sqrt(u**2 + v**2), "slp": slp,
+            "ucomp_sq": u * u, "vcomp_sq": v * v, "temp_sq": t * t,
+            "omega_sq": w * w, "ucomp_vcomp": u * v,
+            "ucomp_omega": u * w, "vcomp_omega": v * w,
+            "ucomp_temp": u * t, "vcomp_temp": v * t, "omega_temp": w * t,
+            "ucomp_height": u * z_full, "vcomp_height": v * z_full,
+            "omega_height": w * z_full, "vcomp_vor": v * state.vorg.curr,
+            "EKE": eke, "vort_norm": vort_norm,
+        }
+        for name, tl in state.tracers.items():
+            r = tl.curr
+            out[name] = r
+            out[f"ucomp_{name}"] = u * r
+            out[f"vcomp_{name}"] = v * r
+            out[f"omega_{name}"] = w * r
+        return out
 
     def static_diag_fields(self, surf_geopotential=None) -> dict:
         """Static 'dynamics' fields: pk, bk, zsurf (spectral_dynamics.F90:1560-1570)."""

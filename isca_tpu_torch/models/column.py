@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from types import SimpleNamespace
 from typing import Any
 
 import numpy as np
@@ -68,6 +69,8 @@ class ColumnModel:
         lats = as_t(np.deg2rad(np.full(c.nlat, c.lat_deg)))
         lons = as_t(np.zeros(c.nlon))
         self.physics = MoistPhysics(c.physics, lats, lons)
+        # minimal grid info for the Experiment/diag layer (column_grid role)
+        self.T = SimpleNamespace(lats=lats, lons=lons, grid_shape=(c.nlat, c.nlon))
         ps = self._full((c.nlat, c.nlon), c.ps)
         ph, lph, pf, lpf = pgm.pressure_variables(self.pk, self.bk, ps, self.top_is_zero)
         self.p_half, self.p_full = ph, pf

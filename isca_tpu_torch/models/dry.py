@@ -60,7 +60,9 @@ class HeldSuarezModel:
 
     def diag_fields(self, state: PrimitiveState, extended: bool = False) -> dict:
         """Standard 'dynamics' module diagnostic fields (SURVEY.md B.2).
-        extended=True (the spectral_diagnostics set) is not ported yet."""
+
+        extended=True adds heights/pressures/slp/wspd, eddy covariance
+        products, tracer fluxes, EKE/vort_norm (spectral_diagnostics set)."""
         if extended:
             return self.core.spectral_diagnostics(state, self.surf_geopotential)
         return {

@@ -1,15 +1,18 @@
 """Prognostic-field validity guard.
 
-Port of isca_tpu/utils/validity.py's `ValidityReport` and `check_range`
-(reference: spectral_dynamics.F90:940-1005, the per-step check of the new
-grid temperature against `valid_range_t`). The check is a pair of
-reductions on the device; the host reads a few scalars when it asks.
+Port of isca_tpu/utils/validity.py: `ValidityReport`, `check_range` and
+`describe_violation` (reference: spectral_dynamics.F90:940-1005, the
+per-step check of the new grid temperature against `valid_range_t`, and
+its located-extremum printout). The check is a pair of reductions on the
+device; the host reads a few scalars when it asks. `Experiment.run` flushes
+the diagnostics before it raises, the reference's flush-then-abort contract.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -37,3 +40,29 @@ def check_range(field: torch.Tensor, lo: float, hi: float) -> ValidityReport:
         vmin=vmin, vmax=vmax,
         min_idx=unravel(imin), max_idx=unravel(imax),
     )
+
+
+def describe_violation(name: str, report: ValidityReport, lo: float, hi: float,
+                       lats=None, lons=None, level_axis: int | None = 0) -> str:
+    """Render the reference's located-extremum printout
+    (spectral_dynamics.F90:949-963: 'temperatures out of valid range' with
+    lon/lat/level indices and degrees). lats/lons in radians if given."""
+    vmin, vmax = float(report.vmin), float(report.vmax)
+    lines = [f"{name} out of valid range [{lo}, {hi}]: "
+             f"min={vmin:.3f}, max={vmax:.3f}"]
+    for label, val, idx, bad in (("minimum", vmin, report.min_idx, vmin < lo),
+                                 ("maximum", vmax, report.max_idx, vmax > hi)):
+        if not bad:
+            continue
+        idx = torch.as_tensor(idx).cpu().numpy()
+        loc = f"index {tuple(int(i) for i in idx)}"
+        if lats is not None and lons is not None and idx.size >= 2:
+            off = 1 if (level_axis == 0 and idx.size >= 3) else 0
+            j, k = int(idx[off]), int(idx[off + 1])
+            loc += (f" = (lat {np.degrees(float(lats[j])):.2f}deg, "
+                    f"lon {np.degrees(float(lons[k])):.2f}deg")
+            if off:
+                loc += f", level {int(idx[0])}"
+            loc += ")"
+        lines.append(f"  {label} {val:.3f} at {loc}")
+    return "\n".join(lines)

@@ -1,7 +1,8 @@
 """isca_tpu_torch on a CUDA card: the sw_flux kernel against its plain
 PyTorch version, the wrapper's input checks, the column model's use of the
-kernel, and the Held-Suarez model on the card against the CPU. Every test
-here needs a CUDA device and skips without one.
+kernel, the Held-Suarez model and its extended diagnostics on the card
+against the CPU, and the run harness (Experiment, restarts) on the card.
+Every test here needs a CUDA device and skips without one.
 
 This file imports torch, numpy and isca_tpu_torch only, so it runs where JAX
 is absent (tests/conftest.py imports JAX; skip it there):
@@ -15,11 +16,15 @@ import torch
 
 from isca_tpu_torch.convert import column_state_from_numpy, column_state_to_numpy
 from isca_tpu_torch.dycore.primitive import PrimitiveConfig
+from isca_tpu_torch.experiment import Experiment
+from isca_tpu_torch.io.diag_manager import DiagTable
+from isca_tpu_torch.io.restart import load_restart, save_restart
 from isca_tpu_torch.models import column as tcol
 from isca_tpu_torch.models.dry import HeldSuarezConfig, HeldSuarezModel
 from isca_tpu_torch.physics import rrtmg_sw as P
 from isca_tpu_torch.physics.moist_driver import MoistPhysicsConfig
 from isca_tpu_torch.physics.rrtm_radiation import RRTMConfig
+from isca_tpu_torch.utils.tree import flatten_with_paths
 
 pytestmark = pytest.mark.skipif(
     "not torch.cuda.is_available()",
@@ -143,5 +148,62 @@ def test_held_suarez_on_card_matches_cpu():
     gpu, cpu32, cpu64 = (fields(torch.float32, "cuda"), fields(torch.float32, "cpu"),
                          fields(torch.float64, "cpu"))
     for k in ("ucomp", "vcomp", "temp", "ps", "vor", "div", "omega"):
+        gap = np.abs(cpu32[k] - cpu64[k]).max()
+        assert np.abs(gpu[k] - cpu32[k]).max() <= 3.0 * gap, k
+
+
+def hs_t21(dtype=torch.float32, device=None):
+    return HeldSuarezModel(HeldSuarezConfig(core=PrimitiveConfig(
+        resolution="T21", num_levels=8, dt=1800.0, dtype=dtype)), device=device)
+
+
+def assert_states_equal(a, b):
+    fa, fb = flatten_with_paths(a), flatten_with_paths(b)
+    assert [p for p, _ in fa] == [p for p, _ in fb]
+    for (p, x), (_, y) in zip(fa, fb):
+        assert x.device == y.device and x.dtype == y.dtype and torch.equal(x, y), p
+
+
+def test_held_suarez_experiment_on_card_equals_direct_run(tmp_path):
+    """Two chained 1-day segments with daily averages, through a restart,
+    against one direct 2-day run on the card: equal on every leaf."""
+    table = DiagTable().add_file("atmos_daily", 86400)
+    for f in ("temp", "ps"):
+        table.add_field("atmos_daily", "dynamics", f, time_avg=True)
+    exp = Experiment("card", hs_t21(), table, datadir=str(tmp_path))
+    exp.run(1, days=1)
+    chained = exp.run(2, days=1)
+    assert chained.tg.curr.is_cuda
+    model = hs_t21()
+    assert_states_equal(chained, model.run(model.initial_state(), 96))
+    from scipy.io import netcdf_file
+    with netcdf_file(str(tmp_path / "card" / "run0002" / "atmos_daily.nc"), mmap=False) as nc:
+        temp = np.array(nc.variables["temp"][:])
+    assert temp.shape == (1, 8, 32, 64) and np.isfinite(temp).all()
+
+
+def test_restart_round_trip_on_card(tmp_path):
+    model = hs_t21()
+    state = model.run(model.initial_state(), 3)
+    path = str(tmp_path / "res.npz")
+    save_restart(path, state)
+    back = load_restart(path, model.initial_state())
+    assert back.vors.curr.dtype == torch.complex64 and back.tg.curr.dtype == torch.float32
+    assert_states_equal(back, state)
+
+
+def test_spectral_diagnostics_on_card_matches_cpu():
+    """diag_fields(extended=True) after 3 steps: each field within 3x the
+    CPU's own float32-versus-float64 difference (the HS card test's rule)."""
+    def fields(dtype, device):
+        model = hs_t21(dtype, device)
+        state = model.run(model.initial_state(), 3)
+        return {k: v.cpu().numpy().astype(np.float64)
+                for k, v in model.diag_fields(state, extended=True).items()}
+
+    gpu, cpu32, cpu64 = (fields(torch.float32, "cuda"), fields(torch.float32, "cpu"),
+                         fields(torch.float64, "cpu"))
+    assert sorted(gpu) == sorted(cpu64)
+    for k in cpu64:
         gap = np.abs(cpu32[k] - cpu64[k]).max()
         assert np.abs(gpu[k] - cpu32[k]).max() <= 3.0 * gap, k

@@ -412,6 +412,7 @@ def test_unported_core_options_raise():
         TCore(dataclasses.replace(base, mesh=object()), device="cpu")
     with pytest.raises(NotImplementedError, match="precision"):
         TCore(dataclasses.replace(base, transform_precision="high"), device="cpu")
+    # spectral_diagnostics is ported now (tests/test_torch_harness.py holds
+    # it against isca_tpu); the options above still raise
     core = TCore(base, device="cpu")
-    with pytest.raises(NotImplementedError, match="spectral_diagnostics"):
-        core.spectral_diagnostics(core.cold_start())
+    assert "slp" in core.spectral_diagnostics(core.cold_start())
