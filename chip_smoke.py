@@ -47,6 +47,22 @@ Phases, each printed as one JSON line:
            Then the column model at the slice's T42 width for one day with
            a daily temp and t_surf file: sw_flux must launch once per step,
            and the restart must load back to the end state bit for bit.
+           Then the Frierson model of `moist` in two chained one-day
+           segments with a daily temp, sphum and t_surf file, held to the
+           bit against one direct two-day run.
+  moist    drives the grey-moist Frierson aquaplanet GCM through
+           GreyMoistModel.run at frierson_test_case_config(): T42 (64 x 128
+           grid), 25 Frierson sigma levels, dt = 720 s, float32, "highest";
+           nothing cut. Compares 3 steps from cold start with the same 3
+           steps on the CPU, each field (sphum and t_surf among them) within
+           3x the CPU's own float32-versus-float64 difference, and counts
+           the columns whose convection switched on in one run and not the
+           other; warms up, times three runs and prints ms per step, their
+           median and frierson_T42L25_model_days_per_day; profiles 2 steps
+           (launches per step, device ms, idle share, device time in the
+           "physics" and "dynamics" ranges); then runs the same GCM with
+           RRTM radiation (RRTMG-SW + grey LW) for a few steps, in which
+           sw_flux must launch exactly once per step.
 Then the `{"kernels": [...]}` summary line, the raw `nvidia-smi` name and
 power limit line, and last `{"ok": true, "device": {...}}`. Any failed phase
 raises, so the script exits non-zero and prints no last line; so does a run
@@ -55,6 +71,7 @@ without a CUDA device.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -336,6 +353,8 @@ HS_FIELDS = ("ucomp", "vcomp", "temp", "ps", "vor", "div")
 # the same run from the same cold start
 HS_TOL_FACTOR = 3.0
 HS_STAGES = ("dft", "legendre", "implicit")
+MOIST_STAGES = ("physics", "dynamics")
+ALL_STAGES = HS_STAGES + MOIST_STAGES
 
 
 def hs_config(dtype):
@@ -426,8 +445,9 @@ def _kernels_under(event):
     return out
 
 
-def phase_dycore_profile(model, state, ms_per_step, steps=2):
-    """Device time of `steps` dycore steps: by kernel and by stage."""
+def profile_stages(model, state, stage_names, steps=2):
+    """torch.profiler over `steps` steps: (device kernel rows, device ms per
+    step, per-stage rows of the named profiler ranges, the profile)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -439,11 +459,12 @@ def phase_dycore_profile(model, state, ms_per_step, steps=2):
     # time, and the stage ranges appear as device-side annotations too
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-               and not getattr(e, "is_user_annotation", False) and e.key not in HS_STAGES]
+               and not getattr(e, "is_user_annotation", False)
+               and e.key not in ALL_STAGES]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
     stages = {}
     for e in prof.events():
-        if e.name in HS_STAGES and e.device_type == DeviceType.CPU:
+        if e.name in stage_names and e.device_type == DeviceType.CPU:
             st = stages.setdefault(e.name, {"calls": 0, "kernels": {}})
             st["calls"] += 1
             for k in _kernels_under(e):
@@ -459,10 +480,18 @@ def phase_dycore_profile(model, state, ms_per_step, steps=2):
             "launches_per_step": sum(r[0] for _, r in rows) / steps,
             "kernels": [{"kernel": kname, "ms_per_step": r[1] / 1e3 / steps,
                          "launches_per_step": r[0] / steps} for kname, r in rows[:6]]}
-    missing = set(HS_STAGES) - set(stage_rows)
+    missing = set(stage_names) - set(stage_rows)
     if missing or device_ms <= 0.0:
-        raise RuntimeError(f"dycore_profile: no device time, or stages {sorted(missing)} "
+        raise RuntimeError(f"profile: no device time, or stages {sorted(missing)} "
                            "not in the trace")
+    return kernels, device_ms, stage_rows, prof
+
+
+def phase_dycore_profile(model, state, ms_per_step, steps=2):
+    """Device time of `steps` dycore steps: by kernel and by stage."""
+    from torch.autograd import DeviceType
+
+    kernels, device_ms, stage_rows, prof = profile_stages(model, state, HS_STAGES, steps)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]
     # host side: ATen ops by their own CPU time (the profiler's overhead
     # inflates these; their shares say where the host's step goes)
@@ -480,6 +509,159 @@ def phase_dycore_profile(model, state, ms_per_step, steps=2):
           "host_ms_per_step_profiled": sum(e.self_cpu_time_total for e in host) / 1e3 / steps,
           "host_top": [{"op": e.key[:60], "self_cpu_ms_per_step": e.self_cpu_time_total / 1e3 / steps,
                         "calls_per_step": e.count / steps} for e in host_top]})
+
+
+# ---------------------------------------------------------------------------
+# moist: the grey-moist Frierson aquaplanet GCM at T42L25
+# ---------------------------------------------------------------------------
+
+FR_COMPARE_STEPS, FR_WARMUP_STEPS, FR_TIMED_STEPS, FR_TIMED_RUNS = 3, 6, 20, 3
+FR_RRTM_STEPS = 3
+FR_FIELDS = ("ps", "ucomp", "vcomp", "temp", "vor", "div", "omega", "sphum", "t_surf")
+# as HS_TOL_FACTOR: the card against the CPU at float32, per field, within
+# this factor times the CPU's own float32-versus-float64 difference
+FR_TOL_FACTOR = 3.0
+
+
+def frierson_config(dtype, **physics):
+    """exp/test_cases/frierson/frierson_test_case.py at full width (T42,
+    25 Frierson sigma levels, dt = 720 s) with exact transforms."""
+    from isca_tpu_torch.models.moist import frierson_test_case_config
+
+    cfg = frierson_test_case_config(dtype=dtype, transform_precision="highest")
+    if physics:
+        cfg = dataclasses.replace(cfg, physics=dataclasses.replace(cfg.physics, **physics))
+    return cfg
+
+
+def moist_fields(model, state):
+    return {k: v.detach().cpu().numpy().astype(np.float64)
+            for k, v in model.diag_fields(state).items() if k in FR_FIELDS}
+
+
+def _moist_compare_run(model):
+    """FR_COMPARE_STEPS steps from cold start, the last with the physics
+    diagnostics: (fields, convecting columns, state)."""
+    state = model.run(model.initial_state(), FR_COMPARE_STEPS - 1)
+    state, diag = model.step_with_diagnostics(state)
+    return moist_fields(model, state), diag["convection_rain"].cpu().numpy() > 0.0, state
+
+
+def phase_moist():
+    """The Frierson GCM on the card; returns the model, its state and the
+    median ms per step."""
+    from isca_tpu_torch.models.moist import GreyMoistModel
+
+    cpu = {}
+    for name, dtype in (("float32", torch.float32), ("float64", torch.float64)):
+        cpu[name] = _moist_compare_run(GreyMoistModel(frierson_config(dtype), device="cpu"))
+    model = GreyMoistModel(frierson_config(torch.float32))
+    T = model.core.T
+    gpu, gpu_conv, state = _moist_compare_run(model)
+    compare, ok = {}, True
+    for k in FR_FIELDS:
+        ref32, ref64 = cpu["float32"][0][k], cpu["float64"][0][k]
+        gap = float(np.abs(ref32 - ref64).max())
+        err = float(np.abs(gpu[k] - ref32).max())
+        compare[k] = {"max_abs_diff": err, "tolerance": FR_TOL_FACTOR * gap,
+                      "cpu_f32_vs_f64": gap,
+                      "card_vs_cpu_f64": float(np.abs(gpu[k] - ref64).max())}
+        ok = ok and err <= FR_TOL_FACTOR * gap
+    # a convection threshold that flips between two float32 runs shows as a
+    # column convecting in one and not the other
+    flips = {"card_vs_cpu_f32": int((gpu_conv != cpu["float32"][1]).sum()),
+             "cpu_f32_vs_f64": int((cpu["float32"][1] != cpu["float64"][1]).sum()),
+             "convecting_columns_cpu_f64": int(cpu["float64"][1].sum())}
+    if not ok:
+        raise RuntimeError(f"moist: card and CPU runs disagree after {FR_COMPARE_STEPS} "
+                           f"steps: {compare}; convection flips {flips}")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = model.run(state, FR_WARMUP_STEPS, first=False)
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for _ in range(FR_TIMED_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = model.run(state, FR_TIMED_STEPS, first=False)
+        torch.cuda.synchronize()
+        runs.append(1e3 * (time.perf_counter() - t0) / FR_TIMED_STEPS)
+    ms_per_step = statistics.median(runs)
+    d = state.dyn
+    finite = all(bool(torch.isfinite(x).all()) for x in
+                 (d.ug.curr, d.vg.curr, d.tg.curr, d.psg.curr, d.tracers["sphum"].curr,
+                  state.t_surf))
+    valid = model.validity(state)
+    if not finite or not bool(valid.ok):
+        raise RuntimeError(f"moist: state after the timed runs is not finite or out of "
+                           f"range (finite={finite}, T in [{float(valid.vmin)}, "
+                           f"{float(valid.vmax)}])")
+    core = model.config.core
+    emit({"phase": "moist", "model": "frierson_test_case", "resolution": core.resolution,
+          "grid": [T.nlat, T.nlon], "spectral": list(T.spec_shape),
+          "levels": core.num_levels, "dt": core.dt, "dtype": str(core.dtype),
+          "transform_precision": core.transform_precision,
+          "width": "full: frierson_test_case.py's T42L25; nothing cut",
+          "compare_steps": FR_COMPARE_STEPS, "tolerance_factor": FR_TOL_FACTOR,
+          "compare": compare, "convection_flips": flips,
+          "warmup_steps": FR_WARMUP_STEPS, "warmup_s": warmup_s,
+          "timed_runs": FR_TIMED_RUNS, "steps_per_run": FR_TIMED_STEPS,
+          "ms_per_step_runs": runs, "ms_per_step_median": ms_per_step,
+          "metric": "frierson_T42L25_model_days_per_day",
+          "value": core.dt / (ms_per_step * 1e-3), "unit": "model-days/day (one GPU)",
+          "finite": finite, "t_range": [float(valid.vmin), float(valid.vmax)],
+          "peak_memory_mb": torch.cuda.max_memory_allocated() / 2**20})
+    return model, state, ms_per_step
+
+
+def phase_moist_profile(model, state, ms_per_step, steps=2):
+    """Device time of `steps` Frierson steps: by kernel and in the "physics"
+    and "dynamics" ranges."""
+    kernels, device_ms, stage_rows, _ = profile_stages(model, state, MOIST_STAGES, steps)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    emit({"phase": "moist_profile", "steps": steps,
+          "device_ms_per_step": device_ms,
+          "launches_per_step": sum(e.count for e in kernels) / steps,
+          "ms_per_step": ms_per_step,
+          "idle_share": 1.0 - device_ms / ms_per_step,
+          "stages": stage_rows,
+          "top": [{"kernel": e.key[:80], "ms_per_step": e.self_device_time_total / 1e3 / steps,
+                   "launches_per_step": e.count / steps} for e in top]})
+
+
+def phase_moist_rrtm():
+    """The Frierson GCM with RRTM radiation (RRTMG-SW + grey LW): sw_flux
+    once per step. Returns its launches."""
+    from isca_tpu_torch.models.moist import GreyMoistModel
+    from isca_tpu_torch.physics import rrtmg_sw
+    from isca_tpu_torch.physics.rrtm_radiation import RRTMConfig
+
+    model = GreyMoistModel(frierson_config(
+        torch.float32, radiation_scheme="rrtm", rrtm=RRTMConfig(lw_scheme="grey")))
+    state = model.initial_state()
+    torch.cuda.synchronize()
+    rrtmg_sw.sw_flux_solve.launches = 0
+    t0 = time.perf_counter()
+    state, diag = model.step_with_diagnostics(model.run(state, FR_RRTM_STEPS - 1), False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = rrtmg_sw.sw_flux_solve.launches
+    if launches != FR_RRTM_STEPS:
+        raise RuntimeError(f"moist_rrtm: sw_flux launched {launches} times in "
+                           f"{FR_RRTM_STEPS} steps, expected one per step")
+    d = state.dyn
+    finite = all(bool(torch.isfinite(x).all()) for x in
+                 (d.tg.curr, d.tracers["sphum"].curr, state.t_surf, diag["swdn_sfc"]))
+    if not finite:
+        raise RuntimeError("moist_rrtm: the RRTM GCM's state is not finite")
+    emit({"phase": "moist_rrtm", "steps": FR_RRTM_STEPS, "sw_flux_launches": launches,
+          "columns": list(model.core.T.grid_shape), "levels": model.config.core.num_levels,
+          "ms_per_step": 1e3 * seconds / FR_RRTM_STEPS, "finite": finite,
+          "swdn_sfc_max": float(diag["swdn_sfc"].max())})
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -502,7 +684,7 @@ def _device_launches(fn, steps):
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-               and not getattr(e, "is_user_annotation", False) and e.key not in HS_STAGES]
+               and not getattr(e, "is_user_annotation", False) and e.key not in ALL_STAGES]
     return sum(e.count for e in kernels) / steps
 
 
@@ -542,10 +724,11 @@ def _read_nc(path):
         return {k: np.array(v[:]) for k, v in nc.variables.items()}
 
 
-def phase_experiment(hs_model, dycore_ms):
+def phase_experiment(hs_model, dycore_ms, fr_model, fr_ms):
     """HS T85L25 through Experiment in two chained one-day segments, held to
     the bit against one direct two-day run; then the column slice through
-    Experiment for one day, with sw_flux on its path."""
+    Experiment for one day, with sw_flux on its path; then the Frierson
+    GCM in two chained one-day segments against one direct two-day run."""
     import tempfile
 
     import isca_tpu_torch.experiment as experiment
@@ -560,10 +743,11 @@ def phase_experiment(hs_model, dycore_ms):
         with tempfile.TemporaryDirectory() as tmp:
             hs = _experiment_hs(hs_model, dycore_ms, tmp, timings)
             col = _experiment_column(tmp, timings)
+            fr = _experiment_frierson(fr_model, fr_ms, tmp, timings)
     finally:
         for (owner, name), fn in patched.items():
             setattr(owner, name, fn)
-    emit({"phase": "experiment", "held_suarez": hs, "column": col})
+    emit({"phase": "experiment", "held_suarez": hs, "column": col, "frierson": fr})
     return {"experiment_hs": hs["sw_flux_launches"], "experiment_column": col["sw_flux_launches"]}
 
 
@@ -700,6 +884,58 @@ def _experiment_column(tmp, timings):
             "restart_mb": os.path.getsize(res) / 1e6}
 
 
+FR_EXP_FIELDS = ("temp", "sphum", "t_surf")
+
+
+def _experiment_frierson(model, moist_ms, tmp, timings):
+    import os
+
+    from isca_tpu_torch.experiment import Experiment
+    from isca_tpu_torch.io.diag_manager import DiagTable
+
+    table = DiagTable().add_file("atmos_daily", 86400)
+    for f in FR_EXP_FIELDS:
+        table.add_field("atmos_daily", "dynamics", f, time_avg=True)
+    exp = Experiment("frierson_T42L25", model, table, datadir=tmp)
+    steps = int(round(86400.0 / model.config.core.dt))
+    walls = []
+    for i in (1, 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chained = exp.run(i, days=1)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    direct = model.run(model.initial_state(), 2 * steps)
+    torch.cuda.synchronize()
+    direct_ms = 1e3 * (time.perf_counter() - t0) / (2 * steps)
+    differ = _states_equal(chained, direct)
+    if differ:
+        raise RuntimeError(f"experiment: the Frierson chained segments differ from the "
+                           f"direct run in {differ}")
+    grid = tuple(model.core.T.grid_shape)
+    L = model.config.core.num_levels
+    for i in (1, 2):
+        nc = _read_nc(os.path.join(exp.datadir, f"run{i:04d}", "atmos_daily.nc"))
+        for f in FR_EXP_FIELDS:
+            want = (1,) + ((L,) if f != "t_surf" else ()) + grid
+            if nc[f].shape != want or not np.isfinite(nc[f]).all():
+                raise RuntimeError(f"experiment: Frierson run {i} {f} has shape "
+                                   f"{nc[f].shape}, want {want}, or is not finite")
+    seg_ms = [1e3 * w / steps for w in walls]
+    restart_s = timings.seconds["restart"][-2:]
+    return {"resolution": model.config.core.resolution, "levels": L, "grid": list(grid),
+            "segments": 2, "days_per_segment": 1, "steps_per_segment": steps,
+            "chained_equals_direct": True, "segment_ms_per_step": seg_ms,
+            "segment_ms_per_step_without_restart": [
+                1e3 * (w - r) / steps for w, r in zip(walls, restart_s)],
+            "moist_ms_per_step": moist_ms, "direct_ms_per_step": direct_ms,
+            "flush_s": timings.seconds["flush"][-2:], "restart_write_s": restart_s,
+            "restart_mb": os.path.getsize(
+                os.path.join(exp.datadir, "restarts", "res0001.npz")) / 1e6}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -718,14 +954,18 @@ def main():
     phase_profile(model, state, ms_per_step)
     hs_model, hs_state, hs_ms = phase_dycore()
     phase_dycore_profile(hs_model, hs_state, hs_ms)
-    exp_launches = phase_experiment(hs_model, hs_ms)
+    fr_model, fr_state, fr_ms = phase_moist()
+    phase_moist_profile(fr_model, fr_state, fr_ms)
+    rrtm_launches = phase_moist_rrtm()
+    exp_launches = phase_experiment(hs_model, hs_ms, fr_model, fr_ms)
     main_case = cases[0]                      # the main path's shape and variant
     emit({"kernels": [{
         "name": "sw_flux", "route": "cuda",
         "source": "isca_tpu_torch/csrc/sw_flux.cu",
         "replaces": "isca_tpu/physics/rrtmg_sw.py:782",
         "launches": launches["sw_flux"],
-        "launches_by_path": {"slice": launches["sw_flux"], **exp_launches},
+        "launches_by_path": {"slice": launches["sw_flux"], "moist_rrtm": rrtm_launches,
+                             **exp_launches},
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],

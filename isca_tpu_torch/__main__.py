@@ -4,9 +4,9 @@ Port of isca_tpu/__main__.py, which replaces the reference's
 `exp/run_isca/isca` CLI (argparse wrapper around Experiment): pick a model
 variant, resolution and run length, chain monthly segments with restarts,
 and write NetCDF diagnostics per run. It runs on the card unless given
-`--device cpu`. Of the six model names, `held_suarez` and `column` are
-ported; the others raise NotImplementedError naming the ROADMAP item that
-ports them.
+`--device cpu`. Of the six model names, `held_suarez`, `frierson` and
+`column` are ported; the others raise NotImplementedError naming the
+ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -19,17 +19,25 @@ MODELS = ("held_suarez", "frierson", "barotropic", "shallow", "giant",
           "column")
 
 # the ROADMAP item (queue A) that ports each model not ported yet
-UNPORTED = {"frierson": "A.5", "giant": "A.5", "barotropic": "A.4",
-            "shallow": "A.4"}
+UNPORTED = {"giant": "A.5", "barotropic": "A.4", "shallow": "A.4"}
 
 
 def build_model(args):
+    import dataclasses
+
     if args.model == "held_suarez":
         from isca_tpu_torch.dycore.primitive import PrimitiveConfig
         from isca_tpu_torch.models.dry import HeldSuarezConfig, HeldSuarezModel
         core = PrimitiveConfig(resolution=args.resolution,
                                num_levels=args.levels, dt=args.dt)
         return HeldSuarezModel(HeldSuarezConfig(core=core), device=args.device)
+    if args.model == "frierson":
+        from isca_tpu_torch.models.moist import GreyMoistConfig, GreyMoistModel
+        cfg = GreyMoistConfig()
+        cfg = dataclasses.replace(cfg, core=dataclasses.replace(
+            cfg.core, resolution=args.resolution, num_levels=args.levels,
+            dt=args.dt))
+        return GreyMoistModel(cfg, device=args.device)
     if args.model == "column":
         from isca_tpu_torch.models.column import ColumnConfig, ColumnModel
         return ColumnModel(ColumnConfig(num_levels=args.levels, dt=args.dt),

@@ -10,6 +10,11 @@ starts both packages from identical state.
   each two-level field of PrimitiveState (PRIMITIVE_TWO_LEVEL: the complex
   spectral vors, divs, ts (L, m, n) and lnps (m, n); the grid ug, vg, tg,
   vorg, divg (L, lat, lon) and psg (lat, lon)), and `wg_full` (L, lat, lon).
+* Grey moist model: the primitive keys of its `dyn`, `sphum_prev` and
+  `sphum_curr` (L, lat, lon), `t_surf` (lat, lon), `time_seconds` (0-d
+  float32), `bucket_depth_prev` and `bucket_depth_curr` (lat, lon), `tke`
+  (lat, lon, L+1) and `rad_cache_<field>` for each field of RadCache
+  (`rad_cache_age` 0-d int32).
 """
 
 from __future__ import annotations
@@ -21,6 +26,8 @@ from isca_tpu_torch import resolve_device
 from isca_tpu_torch.dycore.primitive import PrimitiveState
 from isca_tpu_torch.dycore.time_integration import TwoLevel
 from isca_tpu_torch.models.column import ColumnState
+from isca_tpu_torch.models.moist import GreyMoistState
+from isca_tpu_torch.physics.moist_driver import RadCache
 
 PROGNOSTIC = ("t", "q", "u", "v")
 STATE_KEYS = tuple(f"{n}_{lvl}" for n in PROGNOSTIC for lvl in ("prev", "curr")) + (
@@ -81,4 +88,42 @@ def primitive_state_to_numpy(state: PrimitiveState) -> dict:
         out[f"{n}_prev"] = pair.prev.detach().cpu().numpy()
         out[f"{n}_curr"] = pair.curr.detach().cpu().numpy()
     out["wg_full"] = state.wg_full.detach().cpu().numpy()
+    return out
+
+
+GREY_MOIST_STATE_KEYS = PRIMITIVE_STATE_KEYS + (
+    "sphum_prev", "sphum_curr", "t_surf", "time_seconds",
+    "bucket_depth_prev", "bucket_depth_curr", "tke",
+) + tuple(f"rad_cache_{f}" for f in RadCache._fields)
+
+
+def grey_moist_state_from_numpy(d, dtype=torch.float32, device=None) -> GreyMoistState:
+    """A GreyMoistState on `device`: real fields in `dtype`, spectral fields
+    in its complex type, time_seconds float32 and rad_cache_age int32."""
+    device = resolve_device(device)
+    missing = set(GREY_MOIST_STATE_KEYS) - set(d)
+    if missing:
+        raise KeyError(f"grey moist state is missing {sorted(missing)}")
+    dyn = primitive_state_from_numpy(d, dtype, device)
+    as_t = lambda k, dt=dtype: torch.as_tensor(np.array(d[k])).to(device, dt)
+    two = lambda n: TwoLevel(as_t(f"{n}_prev"), as_t(f"{n}_curr"))
+    dyn.tracers["sphum"] = two("sphum")
+    rad = RadCache(**{f: as_t(f"rad_cache_{f}", torch.int32 if f == "age" else dtype)
+                      for f in RadCache._fields})
+    return GreyMoistState(
+        dyn=dyn, t_surf=as_t("t_surf"), time_seconds=as_t("time_seconds", torch.float32),
+        bucket_depth=two("bucket_depth"), tke=as_t("tke"), rad_cache=rad)
+
+
+def grey_moist_state_to_numpy(state: GreyMoistState) -> dict:
+    """The state as a dict of numpy arrays (keys GREY_MOIST_STATE_KEYS)."""
+    host = lambda x: x.detach().cpu().numpy()
+    out = primitive_state_to_numpy(state.dyn)
+    for n, pair in (("sphum", state.dyn.tracers["sphum"]), ("bucket_depth", state.bucket_depth)):
+        out[f"{n}_prev"], out[f"{n}_curr"] = host(pair.prev), host(pair.curr)
+    out["t_surf"] = host(state.t_surf)
+    out["time_seconds"] = host(state.time_seconds)
+    out["tke"] = host(state.tke)
+    for f in RadCache._fields:
+        out[f"rad_cache_{f}"] = host(getattr(state.rad_cache, f))
     return out

@@ -1,5 +1,5 @@
 """Primitive-equation spectral dynamical core (hybrid sigma-pressure, semi-implicit
-RAW-filtered leapfrog), tracer-free.
+RAW-filtered leapfrog), with grid and spectral tracers.
 
 Port of isca_tpu/dycore/primitive.py (reference:
 src/atmos_spectral/model/spectral_dynamics.F90, step at :780-1034,
@@ -12,8 +12,8 @@ torch tensors:
 * Ordering within one step: physics tendencies (computed by the caller at the
   `previous` time level) -> four_in_one/pressure-gradient/geopotential ->
   advection -> spectral tendencies -> semi-implicit correction -> hyperdiffusion
-  -> leapfrog part A -> synthesize future grid fields -> mass/energy fixers
-  (touch future grid AND spectral fields) -> leapfrog part B (sees the
+  -> leapfrog part A -> synthesize future grid fields -> mass/energy/water
+  fixers (touch future grid AND spectral fields) -> leapfrog part B (sees the
   corrected future).
 * First call is a forward step (prev == curr, delta_t = dt); afterwards 2*dt.
 * Every update is out of place: cold_start gives both time levels the same
@@ -23,9 +23,8 @@ Array layout: grid (lev, lat, lon) with lev index 0 = top; spectral (lev, m, n)
 complex with total-wavenumber n. Vertical-column helpers operate level-last
 on movedim views.
 
-Not ported yet (they raise NotImplementedError): tracers (`tracer_attrs`,
-`do_water_correction`, virtual temperature from a `sphum` tracer), the
-sharded `mesh` path and transform precisions other than "highest".
+Not ported yet (they raise NotImplementedError): the sharded `mesh` path
+and transform precisions other than "highest".
 """
 
 from __future__ import annotations
@@ -39,6 +38,7 @@ import torch
 
 from isca_tpu_torch import resolve_device
 from isca_tpu_torch.constants import Constants, EARTH
+from isca_tpu_torch.dycore import fv_advection as fv
 from isca_tpu_torch.dycore import press_geopot as pg
 from isca_tpu_torch.dycore import vert_advection as va
 from isca_tpu_torch.dycore import vert_coordinate as vc
@@ -50,6 +50,7 @@ from isca_tpu_torch.dycore.time_integration import (
     leapfrog_part_a,
     leapfrog_part_b,
 )
+from isca_tpu_torch.dycore.water_borrowing import water_borrowing
 from isca_tpu_torch.spectral import transforms as tr
 from isca_tpu_torch.utils.validity import check_range
 
@@ -71,7 +72,19 @@ class GridTendencies(NamedTuple):
     du: Any = None
     dv: Any = None
     dt: Any = None
-    dtracers: Any = None   # dict[str, tensor]; tracers are not ported yet
+    dtracers: Any = None   # dict[str, tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class TracerAttr:
+    """Per-tracer numerics, the field_table equivalent
+    (reference: src/extra/model/isca/field_table + tracer_type.F90)."""
+
+    name: str
+    representation: str = "grid"          # 'grid' (van Leer A-grid) | 'spectral'
+    vert_scheme: str = va.FINITE_VOLUME_PARABOLIC
+    robert_coeff: float = 0.04
+    hole_filling: bool = False            # spectral representation only
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,14 +127,14 @@ class PrimitiveConfig:
     zmv_sponge_coeff: float = 0.0
     do_mass_correction: bool = True
     do_energy_correction: bool = True
-    do_water_correction: bool = False      # moist models only; not ported yet
+    do_water_correction: bool = False      # True only for moist models
     water_correction_limit: float = 0.0    # Pa; correct only where p >= limit
     valid_range_t: tuple[float, float] = (100.0, 500.0)
     make_symmetric: bool = False           # zonally-symmetric (axisymmetric)
     initial_temperature: float = 264.0
     uv_vert_advect_scheme: str = va.SECOND_CENTERED
     t_vert_advect_scheme: str = va.SECOND_CENTERED
-    use_virtual_temperature: bool = False  # needs a sphum tracer; not ported yet
+    use_virtual_temperature: bool = False
     constants: Constants = EARTH
     dtype: Any = torch.float32
     # multi-device (mesh, its m padding and transpose chunking): the mesh
@@ -145,8 +158,8 @@ class PrimitiveState:
     psg: TwoLevel     # (lat, lon)
     vorg: TwoLevel
     divg: TwoLevel
-    tracers: dict        # name -> TwoLevel grid; empty (tracers are not ported yet)
-    spec_tracers: dict   # name -> TwoLevel spectral; empty
+    tracers: dict        # name -> TwoLevel grid (L, lat, lon)
+    spec_tracers: dict   # name -> TwoLevel spectral (only for spectral tracers)
     wg_full: torch.Tensor   # omega diagnostic (L, lat, lon)
 
 
@@ -155,11 +168,9 @@ class PrimitiveCore:
 
     def __init__(self, config: PrimitiveConfig, tracer_attrs: tuple = (), device=None):
         self.config = c = config
-        if tuple(tracer_attrs):
-            raise NotImplementedError("tracers are not ported yet")
-        if c.do_water_correction:
-            raise NotImplementedError("the water fixer (do_water_correction) "
-                                      "needs tracers, which are not ported yet")
+        self.tracer_attrs = tuple(tracer_attrs)
+        if c.do_water_correction and "sphum" not in {a.name for a in self.tracer_attrs}:
+            raise ValueError("do_water_correction needs a 'sphum' tracer")
         self.device = resolve_device(device)
         self.C = c.constants
         self.T = tr.make_transforms(c.resolution, nlon=c.nlon, nlat=c.nlat,
@@ -173,6 +184,8 @@ class PrimitiveCore:
                                     pad_m_to=c.pad_m_to,
                                     mesh=c.mesh,
                                     device=self.device)
+        self.fv_geom = fv.make_fv_geometry(self.T) if any(
+            a.representation == "grid" for a in self.tracer_attrs) else None
         self.pk_np, self.bk_np = vc.compute_vert_coord(
             c.vert_coord_option, c.num_levels, **dict(c.vert_coord_kwargs))
         as_t = lambda a: torch.as_tensor(a).to(device=self.device, dtype=c.dtype)
@@ -353,11 +366,15 @@ class PrimitiveCore:
         divg = tr.spec_to_grid(T, divs)
 
         two = lambda x: TwoLevel(x, x)
+        zeros_tr = {a.name: two(self._zeros((L,) + T.grid_shape))
+                    for a in self.tracer_attrs}
+        zeros_sp = {a.name: two(torch.zeros_like(vors))
+                    for a in self.tracer_attrs if a.representation == "spectral"}
         return PrimitiveState(
             vors=two(vors), divs=two(divs), ts=two(ts), lnps=two(lnps),
             ug=two(ug), vg=two(vg), tg=two(tg), psg=two(psg),
             vorg=two(vorg), divg=two(divg),
-            tracers={}, spec_tracers={},
+            tracers=zeros_tr, spec_tracers=zeros_sp,
             wg_full=self._zeros((L,) + T.grid_shape),
         )
 
@@ -442,24 +459,36 @@ class PrimitiveCore:
             )
 
         # ---- pressure variables and gradients at `current`: one batched
-        # gradient synthesis of ln ps (2 fields) and T (2L) ----
+        # gradient synthesis of ln ps (2 fields), T (2L) and each spectral
+        # tracer (2L) ----
         p_half, ln_p_half, p_full, ln_p_full = self.pressure_variables(state.psg.curr)
         L = c.num_levels
+        sp_attrs = [a for a in self.tracer_attrs if a.representation == "spectral"]
         lnps_c, ts_c = state.lnps.curr, state.ts.curr
-        gsyn = tr.spec_to_grid(T, torch.cat([
-            tr.ddx_spec(T, lnps_c)[None], tr.cos_dlat_coeffs(T, lnps_c)[None],
-            tr.ddx_spec(T, ts_c), tr.cos_dlat_coeffs(T, ts_c)], dim=0))
+        grad_parts = [tr.ddx_spec(T, lnps_c)[None], tr.cos_dlat_coeffs(T, lnps_c)[None],
+                      tr.ddx_spec(T, ts_c), tr.cos_dlat_coeffs(T, ts_c)]
+        for attr in sp_attrs:
+            s_tr = state.spec_tracers[attr.name].curr
+            grad_parts += [tr.ddx_spec(T, s_tr), tr.cos_dlat_coeffs(T, s_tr)]
+        gsyn = tr.spec_to_grid(T, torch.cat(grad_parts, dim=0))
         dx_lnps, dy_lnps = gsyn[0], gsyn[1]
         coslat = T.coslat[:, None]
         acoslat = T.radius * coslat
-        # advective-form -(V . grad) term for T
+        # advective-form -(V . grad) terms for T and the spectral tracers
         t_adv = -(state.ug.curr * gsyn[2:2 + L]
                   + state.vg.curr * gsyn[2 + L:2 + 2 * L]) / acoslat
+        sp_adv = {}
+        for i, attr in enumerate(sp_attrs):
+            o = 2 + 2 * L + 2 * L * i
+            sp_adv[attr.name] = -(state.ug.curr * gsyn[o:o + L]
+                                  + state.vg.curr * gsyn[o + L:o + 2 * L]) / acoslat
         dx_psg = state.psg.curr * dx_lnps / (T.radius * coslat)
         dy_psg = state.psg.curr * dy_lnps / (T.radius * coslat)
 
-        # no sphum tracer: the virtual temperature is the temperature
-        virt_t = state.tg.curr
+        if c.use_virtual_temperature and "sphum" in state.tracers:
+            virt_t = pg.virtual_temperature(state.tg.curr, state.tracers["sphum"].curr, C.zvir)
+        else:
+            virt_t = state.tg.curr
         du_pgf, dv_pgf, dt_econv, dps_tend, wg, wg_full = self._four_in_one(
             state.divg.curr, state.ug.curr, state.vg.curr, virt_t, state.psg.curr,
             ln_p_half, ln_p_full, p_full, dx_psg, dy_psg,
@@ -498,17 +527,35 @@ class PrimitiveCore:
         dt_ug = dt_ug + abs_vor * state.vg.curr
         dt_vg = dt_vg - abs_vor * state.ug.curr
 
+        # ---- spectral tracers, pass 1: grid-space tendencies (they join
+        # the single batched analysis; update_tracers spectral branch,
+        # spectral_dynamics.F90:1116-1160) ----
+        dtracers = phys.dtracers or {}
+        sp_dt = {}
+        for attr in sp_attrs:
+            trg = state.tracers[attr.name]
+            dt_tr = sp_adv[attr.name]
+            if dtracers.get(attr.name) is not None:
+                dt_tr = dt_tr + dtracers[attr.name]
+            dt_tr = dt_tr + vadv(pick(trg, attr.vert_scheme), attr.vert_scheme)
+            if attr.hole_filling:
+                dt_tr = water_borrowing(dt_tr, trg.prev, p_half, delta_t)
+            sp_dt[attr.name] = dt_tr
+
         # ---- one batched analysis: (u,v)/cos for vor-div, T tendency,
-        # Phi+KE, ln ps tendency ----
+        # Phi+KE, ln ps tendency, spectral tracer tendencies ----
         phi_plus_ke = phig_full + 0.5 * (state.ug.curr**2 + state.vg.curr**2)
         ana = tr.grid_to_spec(T, torch.cat(
-            [dt_ug / coslat, dt_vg / coslat, dt_tg, phi_plus_ke, dt_ln_psg[None]], dim=0),
+            [dt_ug / coslat, dt_vg / coslat, dt_tg, phi_plus_ke, dt_ln_psg[None]]
+            + [sp_dt[a.name] for a in sp_attrs], dim=0),
             truncate=False)
         tt = lambda s: tr.triangular_truncate(T, s)
         dt_vors, dt_divs = tr.vor_div_from_analysis(T, ana[:L], ana[L:2 * L])
         dt_ts = tt(ana[2 * L:3 * L])
         dt_divs = dt_divs - tr.laplacian(T, tt(ana[3 * L:4 * L]))
         dt_lnps = tt(ana[4 * L])
+        sp_dts = {a.name: tt(ana[4 * L + 1 + i * L:4 * L + 1 + (i + 1) * L])
+                  for i, a in enumerate(sp_attrs)}
 
         # semi-implicit correction
         if c.use_implicit:
@@ -537,17 +584,67 @@ class PrimitiveCore:
             divs = leapfrog(state.divs, dt_divs, delta_t, rc, rw)
             ts = leapfrog(state.ts, dt_ts, delta_t, rc, rw)
 
-        # ---- one batched synthesis of every future grid field: prognostics
-        # and winds (via uv_coeffs) ----
+        # ---- spectral tracers, pass 2: damping + leapfrog (their future
+        # grid values join the single batched synthesis below) ----
+        new_tracers = dict(state.tracers)
+        new_spec_tracers = dict(state.spec_tracers)
+        tracer_partB = {}
+        for attr in sp_attrs:
+            trs = state.spec_tracers[attr.name]
+            dt_trs = apply_damping(self.damping, trs.prev, sp_dts[attr.name], delta_t)
+            if final:
+                trs_new, tracer_partB[attr.name] = leapfrog_part_a(
+                    trs, dt_trs, delta_t, attr.robert_coeff, rw)
+            else:
+                trs_new = leapfrog(trs, dt_trs, delta_t, attr.robert_coeff, rw)
+            new_spec_tracers[attr.name] = trs_new
+
+        # ---- one batched synthesis of every future grid field: prognostics,
+        # winds (via uv_coeffs), spectral tracers ----
         U, V = tr.uv_coeffs_from_vor_div(T, vors.curr, divs.curr)
         synth = tr.spec_to_grid(T, torch.cat(
-            [divs.curr, vors.curr, ts.curr, lnps.curr[None], U, V], dim=0))
+            [divs.curr, vors.curr, ts.curr, lnps.curr[None], U, V]
+            + [new_spec_tracers[a.name].curr for a in sp_attrs], dim=0))
         divg_f = synth[:L]
         vorg_f = synth[L:2 * L]
         tg_f = synth[2 * L:3 * L]
         psg_f = torch.exp(synth[3 * L])
         ug_f = synth[3 * L + 1:4 * L + 1] / coslat
         vg_f = synth[4 * L + 1:5 * L + 1] / coslat
+        for i, attr in enumerate(sp_attrs):
+            trg_f = synth[5 * L + 1 + i * L:5 * L + 1 + (i + 1) * L]
+            new_tracers[attr.name] = TwoLevel(state.tracers[attr.name].curr, trg_f)
+
+        # ---- grid tracers (update_tracers, spectral_dynamics.F90:1116-1188) ----
+        if c.do_water_correction:
+            dq_phys = dtracers.get("sphum")
+            q_prev_est = state.tracers["sphum"].prev
+            if dq_phys is not None:
+                q_prev_est = q_prev_est + delta_t * dq_phys
+            mean_water_prev = self.mass_weighted_integral(q_prev_est, state.psg.prev)
+        for attr in self.tracer_attrs:
+            if attr.representation == "spectral":
+                continue  # handled in the batched passes above
+            trg = state.tracers[attr.name]
+            dtr_phys = dtracers.get(attr.name)
+            # grid tracer: forward from previous + van Leer horiz + FV vertical
+            tr_future = trg.prev
+            if dtr_phys is not None:
+                tr_future = tr_future + delta_t * dtr_phys
+            adv = fv.a_grid_horiz_advection(
+                self.fv_geom, state.ug.curr, state.vg.curr, tr_future, delta_t)
+            tr_future = tr_future + delta_t * adv
+            tr_future = tr_future + delta_t * vadv(tr_future, attr.vert_scheme)
+            if final:
+                P_tr = trg.prev - 2.0 * trg.curr
+                tracer_partB[attr.name] = P_tr
+            else:
+                # inline-complete filter on `current` only; the reference
+                # overwrites the future with the unfiltered tr_future
+                # (spectral_dynamics.F90:1164-1180 last assignment)
+                P_tr = trg.prev - 2.0 * trg.curr + tr_future
+            curr_filt = trg.curr + attr.robert_coeff * rw * P_tr
+            new_tracers[attr.name] = TwoLevel(curr_filt, tr_future)
 
         # ---- global fixers (compute_corrections) on the future fields;
         # the (0, 0) coefficients are written into fresh copies ----
@@ -568,6 +665,23 @@ class PrimitiveCore:
             ts_f[:, 0, 0] += t_corr
             ts = TwoLevel(ts.prev, ts_f)
 
+        if c.do_water_correction:
+            # rescale future moisture where p >= water_correction_limit so the
+            # corrected-region mass integral restores the previous total
+            # (spectral_dynamics.F90:1245-1283 incl. the MiMA limit extension)
+            q_f = new_tracers["sphum"].curr
+            mask = (p_full >= c.water_correction_limit).to(c.dtype)
+            corr = self.mass_weighted_integral(q_f * mask, psg_f)
+            not_corr = self.mass_weighted_integral(q_f * (1.0 - mask), psg_f)
+            total = corr + not_corr
+            base = torch.where(total > 0.0,
+                               mean_water_prev / torch.where(total > 0, total, 1.0), 1.0)
+            safe_corr = torch.where(corr > 0, corr, 1.0)
+            factor = base * (1.0 + not_corr / safe_corr) - not_corr / safe_corr
+            factor = torch.where((total > 0.0) & (corr > 0.0), factor, 1.0)
+            q_f = torch.where(mask > 0, factor * q_f, q_f)
+            new_tracers["sphum"] = TwoLevel(new_tracers["sphum"].prev, q_f)
+
         # ---- leapfrog part B (final substep only: filter completes with the
         # corrected future; non-final substeps used the inline filter) ----
         if final:
@@ -575,6 +689,10 @@ class PrimitiveCore:
             vors = leapfrog_part_b(vors, P_vors, rc, rw)
             divs = leapfrog_part_b(divs, P_divs, rc, rw)
             ts = leapfrog_part_b(ts, P_ts, rc, rw)
+            for attr in self.tracer_attrs:
+                pairs = new_spec_tracers if attr.representation == "spectral" else new_tracers
+                pairs[attr.name] = leapfrog_part_b(
+                    pairs[attr.name], tracer_partB[attr.name], attr.robert_coeff, rw)
 
         advance = lambda old, fut: TwoLevel(old.curr, fut)
         return PrimitiveState(
@@ -582,6 +700,6 @@ class PrimitiveCore:
             ug=advance(state.ug, ug_f), vg=advance(state.vg, vg_f),
             tg=advance(state.tg, tg_f), psg=advance(state.psg, psg_f),
             vorg=advance(state.vorg, vorg_f), divg=advance(state.divg, divg_f),
-            tracers={}, spec_tracers={},
+            tracers=new_tracers, spec_tracers=new_spec_tracers,
             wg_full=wg_full,
         )

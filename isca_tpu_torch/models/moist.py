@@ -1,0 +1,300 @@
+"""Grey-radiation moist aquaplanet (Frierson) model.
+
+Port of isca_tpu/models/moist.py. Reference composition: GreyCodeBase
+(`grey_isca.x`) - the primitive-equation spectral core + idealized_moist_phys
+with two-stream grey radiation (or RRTMG-SW + grey LW), simple Betts-Miller
+convection, large-scale condensation, Monin-Obukhov surface fluxes, K-profile
+boundary layer, an optional upper Rayleigh sponge, and a slab ocean; specific
+humidity as a grid tracer (van Leer + PPM vertical), with the
+water-conservation fixer. A run is a Python loop of eager steps.
+
+Not ported (ROADMAP A.5): land (`set_land`) and bucket hydrology; the
+physics driver raises for its other unported schemes.
+
+Matches exp/test_cases/frierson/frierson_test_case.py defaults.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+from torch.profiler import record_function
+
+from isca_tpu_torch.dycore import press_geopot as pgm
+from isca_tpu_torch.dycore import vert_advection as va
+from isca_tpu_torch.dycore.primitive import (
+    GridTendencies,
+    PrimitiveConfig,
+    PrimitiveCore,
+    PrimitiveState,
+    TracerAttr,
+)
+from isca_tpu_torch.dycore.time_integration import TwoLevel
+from isca_tpu_torch.physics.mixed_layer import initial_t_surf
+from isca_tpu_torch.physics.moist_driver import (
+    MoistPhysics,
+    MoistPhysicsConfig,
+    RadCache,
+    zero_rad_cache,
+)
+from isca_tpu_torch.spectral import transforms as tr
+
+
+@dataclasses.dataclass(frozen=True)
+class GreyMoistConfig:
+    core: PrimitiveConfig = PrimitiveConfig(
+        resolution="T42",
+        num_levels=25,
+        dt=720.0,
+        vert_coord_option="uneven_sigma",
+        vert_coord_kwargs=(("scale_heights", 6.0), ("surf_res", 0.5), ("exponent", 7.5)),
+        do_water_correction=True,
+        water_correction_limit=200.0e2,
+        use_virtual_temperature=False,   # frierson test case: dry dynamics T
+        robert_coeff=0.03,
+    )
+    physics: MoistPhysicsConfig = MoistPhysicsConfig()
+    initial_sphum: float = 2.0e-6
+    t_surf_init: float = 285.0
+    sphum_vert_scheme: str = va.FINITE_VOLUME_PARABOLIC
+
+
+@dataclasses.dataclass
+class GreyMoistState:
+    dyn: PrimitiveState
+    t_surf: torch.Tensor
+    time_seconds: torch.Tensor   # 0-d float32 model time (s) for seasonal insolation
+    bucket_depth: TwoLevel       # (lat, lon) water depth (m); bucket not ported
+    tke: torch.Tensor            # (lat, lon, L+1) MY2.5 TKE (zeros; MY2.5 not ported)
+    rad_cache: RadCache          # radiation of the last step (substepping not ported)
+
+
+class GreyMoistModel:
+    def __init__(self, config: GreyMoistConfig = GreyMoistConfig(), device=None):
+        """device: None runs on CUDA (and raises without it); "cpu" on the CPU."""
+        self.config = config
+        attrs = (TracerAttr("sphum", representation="grid",
+                            vert_scheme=config.sphum_vert_scheme),)
+        self.core = PrimitiveCore(config.core, tracer_attrs=attrs, device=device)
+        self.device = self.core.device
+        self.physics = MoistPhysics(config.physics, self.core.T.lats, self.core.T.lons)
+        self.surf_geopotential = torch.zeros(self.core.T.grid_shape, dtype=config.core.dtype,
+                                             device=self.device)
+
+    def set_land(self, land_mask, surf_geopotential=None, units="m"):
+        raise NotImplementedError(
+            "land (set_land) is not ported to isca_tpu_torch yet (ROADMAP A.5)")
+
+    # valid_range_t guard (spectral_dynamics.F90:940-1005)
+    validity_name = "temperature"
+
+    @property
+    def validity_range(self):
+        return self.config.core.valid_range_t
+
+    def validity(self, state: GreyMoistState):
+        return self.core.validity(state.dyn)
+
+    # ------------------------------------------------------------------
+    def initial_state(self) -> GreyMoistState:
+        c, T = self.config, self.core.T
+        dtype = c.core.dtype
+        dyn = self.core.cold_start(self.surf_geopotential)
+        q0 = torch.full_like(dyn.tracers["sphum"].curr, c.initial_sphum)
+        dyn.tracers["sphum"] = TwoLevel(q0, q0)
+        if c.physics.mixed_layer.prescribe_initial_dist:
+            lat2d = T.lats[:, None] * torch.ones((1, T.nlon), dtype=dtype, device=self.device)
+            t_surf = initial_t_surf(c.physics.mixed_layer, lat2d).to(dtype)
+        else:
+            t_surf = torch.full(T.grid_shape, c.t_surf_init, dtype=dtype, device=self.device)
+        depth0 = torch.full(T.grid_shape, c.physics.init_bucket_depth, dtype=dtype,
+                            device=self.device)
+        L = c.core.num_levels
+        return GreyMoistState(
+            dyn=dyn, t_surf=t_surf,
+            time_seconds=torch.zeros((), dtype=torch.float32, device=self.device),
+            bucket_depth=TwoLevel(depth0, depth0),
+            tke=torch.zeros(T.grid_shape + (L + 1,), dtype=dtype, device=self.device),
+            rad_cache=zero_rad_cache(T.grid_shape, L, dtype, self.device))
+
+    # ------------------------------------------------------------------
+    def step(self, state: GreyMoistState, first: bool = False) -> GreyMoistState:
+        return self._step_impl(state, first)[0]
+
+    def step_with_diagnostics(self, state: GreyMoistState, first: bool = False):
+        """One step, also returning the physics diagnostics dict
+        (precipitation, fluxes, radiation...) merged with the standard
+        prognostic diag_fields."""
+        new_state, phys_diag = self._step_impl(state, first)
+        diag = dict(self.diag_fields(new_state))
+        diag.update(phys_diag)
+        return new_state, diag
+
+    def _step_impl(self, state: GreyMoistState, first: bool = False):
+        c, core = self.config, self.core
+        C = core.C
+        dyn = state.dyn
+        delta_t = c.core.dt if first else 2.0 * c.core.dt
+        ll = lambda x: torch.movedim(x, 0, -1)   # level-first -> level-last
+        lf = lambda x: torch.movedim(x, -1, 0)
+
+        # pressures/heights at previous and current
+        def pres_z(psg, tg):
+            ph, lph, pf, lpf = pgm.pressure_variables(core.pk, core.bk, psg, core.top_is_zero)
+            geo_f, geo_h = pgm.compute_geopotential(
+                C.rdgas, ll(tg), lph, lpf, self.surf_geopotential,
+                core.top_is_zero, p_half=ph)
+            return ph, pf, geo_f / C.grav, geo_h / C.grav
+
+        q = dyn.tracers["sphum"]
+        ph_prev, pf_prev, _, _ = pres_z(dyn.psg.prev, dyn.tg.prev)
+        ph_curr, pf_curr, zf_curr, zh_curr = pres_z(dyn.psg.curr, dyn.tg.curr)
+
+        # float32 time, as in isca_tpu: gmt and time_since_ae round alike
+        day = C.seconds_per_day
+        gmt = torch.remainder(state.time_seconds, day) / day * 2.0 * math.pi
+        tsae = torch.remainder(
+            state.time_seconds / c.physics.constants.orbital_period
+            - c.physics.radiation.equinox_day, 1.0) * 2.0 * math.pi
+
+        with record_function("physics"):
+            phys = self.physics(
+                delta_t, c.core.dt,
+                ll(dyn.ug.prev), ll(dyn.vg.prev), ll(dyn.tg.prev), ll(q.prev),
+                pf_prev, ph_prev, pf_curr, ph_curr, zf_curr, zh_curr,
+                state.t_surf, gmt=gmt, time_since_ae=tsae,
+                bucket_depth=state.bucket_depth.curr,
+                time_seconds=state.time_seconds,
+                wg_full=ll(dyn.wg_full),
+                tke=state.tke,
+                rad_cache=state.rad_cache,
+            )
+
+        tend = GridTendencies(du=lf(phys.dt_u), dv=lf(phys.dt_v), dt=lf(phys.dt_t),
+                              dtracers={"sphum": lf(phys.dt_q)})
+        with record_function("dynamics"):
+            dyn_new = core.dynamics_step(dyn, tend, self.surf_geopotential, first=first)
+        new_state = GreyMoistState(
+            dyn=dyn_new, t_surf=phys.t_surf,
+            time_seconds=state.time_seconds + c.core.dt,
+            bucket_depth=state.bucket_depth,
+            tke=phys.diagnostics.get("tke", state.tke),
+            rad_cache=phys.rad_cache,
+        )
+        return new_state, phys.diagnostics
+
+    # ------------------------------------------------------------------
+    def run(self, state: GreyMoistState, num_steps: int, first: bool = True) -> GreyMoistState:
+        for i in range(num_steps):
+            state = self.step(state, first=first and i == 0)
+        return state
+
+    def diag_fields(self, state: GreyMoistState, extended: bool = False) -> dict:
+        """Standard diagnostic fields ('dynamics' + moist additions).
+
+        extended=True returns the reference's full spectral_diagnostics set
+        (SURVEY.md B.2) plus t_surf."""
+        if extended:
+            out = self.core.spectral_diagnostics(
+                state.dyn, self.surf_geopotential,
+                use_virtual_temperature=self.config.core.use_virtual_temperature)
+            out["t_surf"] = state.t_surf
+            return out
+        d = state.dyn
+        return {
+            "ps": d.psg.curr,
+            "ucomp": d.ug.curr,
+            "vcomp": d.vg.curr,
+            "temp": d.tg.curr,
+            "vor": d.vorg.curr,
+            "div": d.divg.curr,
+            "omega": d.wg_full,
+            "sphum": d.tracers["sphum"].curr,
+            "t_surf": state.t_surf,
+        }
+
+    def diagnostics(self, state: GreyMoistState) -> dict:
+        T = self.core.T
+        dyn = state.dyn
+        q = dyn.tracers["sphum"].curr
+        return {
+            "mean_ps": tr.area_weighted_mean(T, dyn.psg.curr),
+            "tmin": dyn.tg.curr.min(),
+            "tmax": dyn.tg.curr.max(),
+            "umax": torch.abs(dyn.ug.curr).max(),
+            "qmin": q.min(),
+            "qmax": q.max(),
+            "mean_t_surf": tr.area_weighted_mean(T, state.t_surf),
+            "total_water": self.core.mass_weighted_integral(q, dyn.psg.curr),
+            "t_zonal": dyn.tg.curr.mean(dim=2),
+            "u_zonal": dyn.ug.curr.mean(dim=2),
+            "q_zonal": q.mean(dim=2),
+        }
+
+
+# Frierson 2006 sigma ladder (reference frierson_test_case.py vert_coordinate_nml)
+FRIERSON_BK = (
+    0.000000, 0.0117665, 0.0196679, 0.0315244, 0.0485411, 0.0719344,
+    0.1027829, 0.1418581, 0.1894648, 0.2453219, 0.3085103, 0.3775033,
+    0.4502789, 0.5244989, 0.5977253, 0.6676441, 0.7322627, 0.7900587,
+    0.8400683, 0.8819111, 0.9157609, 0.9422770, 0.9625127, 0.9778177,
+    0.9897489, 1.0000000,
+)
+
+
+def frierson_test_case_config(**core_overrides) -> GreyMoistConfig:
+    """The reference's frierson_test_case.py configuration, faithfully.
+
+    GreyMoistConfig() carries the *namelist defaults* (as the reference
+    modules do); the published Frierson test case overrides them - shallow
+    2.5 m slab with albedo 0.31 (Jucker & Gerber 2017 CTRL), atm_abs 0.2,
+    Frierson's own sigma ladder, rhbm 0.7, low roughness lengths, zero
+    gustiness, and an upper Rayleigh sponge (reference:
+    exp/test_cases/frierson/frierson_test_case.py:49-171).
+    """
+    from isca_tpu_torch.physics.damping_driver import DampingDriverConfig
+    from isca_tpu_torch.physics.lscale_cond import LscaleCondConfig
+    from isca_tpu_torch.physics.mixed_layer import MixedLayerConfig
+    from isca_tpu_torch.physics.qe_moist_convection import QEMoistConvectionConfig
+    from isca_tpu_torch.physics.two_stream_gray import TwoStreamConfig
+
+    core = PrimitiveConfig(
+        resolution="T42",
+        num_levels=25,
+        dt=720.0,
+        vert_coord_option="input",
+        vert_coord_kwargs=(
+            ("bk", FRIERSON_BK),
+            ("pk", (0.0,) * len(FRIERSON_BK)),
+        ),
+        damping_order=4,
+        do_water_correction=True,
+        water_correction_limit=200.0e2,
+        reference_sea_level_press=1.0e5,
+        valid_range_t=(100.0, 800.0),
+        use_virtual_temperature=False,
+        robert_coeff=0.03,
+        **core_overrides,
+    )
+    phys = MoistPhysicsConfig(
+        convection_scheme="SIMPLE_BETTS_MILLER",
+        convection=QEMoistConvectionConfig(rhbm=0.7, Tmin=160.0),
+        condensation=LscaleCondConfig(do_simple=True, do_evap=True),
+        radiation=TwoStreamConfig(atm_abs=0.2),
+        mixed_layer=MixedLayerConfig(
+            depth=2.5, albedo_value=0.31, tconst=285.0,
+            prescribe_initial_dist=True, evaporation=True,
+        ),
+        do_damping=True,
+        damping=DampingDriverConfig(
+            do_rayleigh=True, trayfric=-0.25, sponge_pbottom=5000.0,
+            do_conserve_energy=True,
+        ),
+        roughness_mom=3.21e-05,
+        roughness_heat=3.21e-05,
+        roughness_moist=3.21e-05,
+        gust_const=0.0,
+    )
+    return GreyMoistConfig(core=core, physics=phys)

@@ -43,6 +43,10 @@ class MixedLayerConfig:
     tconst: float = 305.0
     land_h_capacity_prefactor: float = 1.0
     land_albedo_prefactor: float = 1.0
+    # initial SST distribution (mixed_layer.F90:90-91, 347):
+    # t_surf = tconst - delta_T*(3 sin^2(lat) - 1)/3
+    prescribe_initial_dist: bool = False
+    delta_T: float = 40.0
     # MiMA heat-capacity profile options (mixed_layer.F90:95-106, 510-556):
     # negative land_depth/trop_depth mean "use `depth`"
     land_depth: float = -1.0
@@ -94,6 +98,12 @@ def warmpool_qflux(cfg: MixedLayerConfig, lons, lats):
     lat_scaled = torch.rad2deg(lats) / cfg.warmpool_width
     pool = (1.0 - lat_scaled**2) * cfg.warmpool_amp * torch.cos(cfg.warmpool_k * lons)
     return torch.where(torch.abs(lat_scaled) <= 1.0, pool, 0.0)
+
+
+def initial_t_surf(cfg: MixedLayerConfig, lats):
+    """Prescribed initial SST distribution (mixed_layer.F90:347):
+    tconst - delta_T*(3 sin^2(lat) - 1)/3."""
+    return cfg.tconst - cfg.delta_T * (3.0 * torch.sin(lats) ** 2 - 1.0) / 3.0
 
 
 def ape_sst(lats):

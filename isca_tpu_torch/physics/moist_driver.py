@@ -10,12 +10,15 @@ up-sweep.
 
 Ported: simple Betts-Miller convection (or none), large-scale condensation,
 grey two-stream or RRTM (RRTMG-SW + grey LW) radiation every step, bulk
-surface fluxes, the K-profile diffusivity, vertical diffusion and the slab
-mixed layer. Every other scheme and option raises NotImplementedError when
-the driver is built: RAS, full Betts-Miller and dry convection, SOCRATES,
-clouds, damping, the giant-planet surface, bucket hydrology, the other
-boundary-layer schemes, shallow convection and radiation substepping
-(dt_rad > dt).
+surface fluxes, the upper-atmosphere damping (Rayleigh sponge and constant
+drag), the K-profile diffusivity, vertical diffusion and the slab mixed
+layer. Every other scheme and option raises NotImplementedError when the
+driver is built: RAS, full Betts-Miller and dry convection, SOCRATES,
+clouds, the gravity-wave drags, the giant-planet surface, bucket
+hydrology, the other boundary-layer schemes, shallow convection and
+radiation substepping (dt_rad > dt). The keyword inputs of those options
+(`bucket_depth`, `wg_full`, `tke`, `rad_cache`) are accepted so that the
+GCM calls both packages' drivers alike.
 
 Prognostic fields are taken at the `previous` time level, pressures/heights
 at `current`. The mixed layer advances with dt_real (not the leapfrog 2*dt).
@@ -31,6 +34,11 @@ from typing import NamedTuple
 import torch
 
 from isca_tpu_torch.constants import Constants, EARTH
+from isca_tpu_torch.physics.damping_driver import (
+    DampingDriverConfig,
+    check_ported as check_damping_ported,
+    damping_driver,
+)
 from isca_tpu_torch.physics.diffusivity import DiffusivityConfig, diffusivity
 from isca_tpu_torch.physics.lscale_cond import LscaleCond, LscaleCondConfig
 from isca_tpu_torch.physics.mixed_layer import (
@@ -58,7 +66,10 @@ class MoistPhysicsConfig:
     do_damping: bool = False
     mixed_layer_bc: bool = True
     gp_surface: bool = False         # giant-planet lower boundary
-    bucket: bool = False             # Manabe bucket hydrology
+    # Manabe bucket hydrology (idealized_moist_phys.F90:147-155); not
+    # ported: the GCM state carries the initial depth unchanged
+    bucket: bool = False
+    init_bucket_depth: float = 1000.0
     radiation_scheme: str = "two_stream"   # | "rrtm" (RRTMG-SW + grey LW)
     do_cloud_simple: bool = False
     do_cloud_spookie: bool = False
@@ -78,8 +89,33 @@ class MoistPhysicsConfig:
     bl: DiffusivityConfig = DiffusivityConfig(do_simple=True, frac_inner=0.1)
     do_shallow_conv: bool = False
     mixed_layer: MixedLayerConfig = MixedLayerConfig()
+    damping: DampingDriverConfig = DampingDriverConfig()
     rrtm: "RRTMConfig | None" = None       # used when radiation_scheme="rrtm"
     constants: Constants = EARTH
+
+
+class RadCache(NamedTuple):
+    """Stored radiation results for dt_rad substepping (the reference
+    rrtm adapter's stored intermediate fluxes, rrtm_radiation.F90:150-205).
+    Substepping is not ported: every step computes radiation and returns a
+    fresh cache with age 1. The model state carries it, so that restarts
+    interchange with isca_tpu's."""
+    tdt_rad: torch.Tensor          # (..., L)
+    tdt_solar: torch.Tensor        # (..., L)
+    olr: torch.Tensor              # (...)
+    net_surf_sw_down: torch.Tensor
+    surf_lw_down: torch.Tensor
+    coszen: torch.Tensor
+    net_lw_surf: torch.Tensor
+    age: torch.Tensor              # int32 steps since last radiation call
+
+
+def zero_rad_cache(shape2d, L, dtype, device=None):
+    z2 = torch.zeros(shape2d, dtype=dtype, device=device)
+    z3 = torch.zeros(tuple(shape2d) + (L,), dtype=dtype, device=device)
+    return RadCache(tdt_rad=z3, tdt_solar=z3, olr=z2, net_surf_sw_down=z2,
+                    surf_lw_down=z2, coszen=z2, net_lw_surf=z2,
+                    age=torch.zeros((), dtype=torch.int32, device=device))
 
 
 class MoistPhysicsResult(NamedTuple):
@@ -89,13 +125,13 @@ class MoistPhysicsResult(NamedTuple):
     dt_q: torch.Tensor
     t_surf: torch.Tensor
     diagnostics: dict
+    rad_cache: RadCache | None = None
 
 
 def _check_ported(cfg: MoistPhysicsConfig):
     later = {
         "convection_scheme": cfg.convection_scheme not in ("SIMPLE_BETTS_MILLER", "NONE"),
         "radiation_scheme": cfg.radiation_scheme.lower() not in ("two_stream", "rrtm"),
-        "do_damping": cfg.do_damping,
         "gp_surface": cfg.gp_surface,
         "bucket": cfg.bucket,
         "do_cloud_simple": cfg.do_cloud_simple,
@@ -108,6 +144,8 @@ def _check_ported(cfg: MoistPhysicsConfig):
             raise NotImplementedError(
                 f"MoistPhysicsConfig({name}={getattr(cfg, name)!r}) is not "
                 "ported to isca_tpu_torch yet")
+    if cfg.do_damping:
+        check_damping_ported(cfg.damping)
 
 
 class MoistPhysics:
@@ -144,6 +182,11 @@ class MoistPhysics:
         p_full_curr, p_half_curr, z_full_curr, z_half_curr,
         t_surf,
         gmt=0.0, time_since_ae=0.0,
+        bucket_depth=None,      # (lat, lon); feeds the bucket (not ported)
+        time_seconds=0.0,       # model time (the constant drag's annual cycle)
+        wg_full=None,           # (..., L); feeds SimCloud (not ported)
+        tke=None,               # (..., L+1); feeds MY2.5 (not ported)
+        rad_cache=None,         # RadCache; feeds dt_rad substepping (not ported)
     ) -> MoistPhysicsResult:
         cfg, C = self.config, self.C
         if cfg.dt_rad > dt_real:
@@ -187,7 +230,13 @@ class MoistPhysics:
         rad_down = self.radiation.down(
             self.lat2d, self.lon2d, p_half_curr, t_prev, q_prev, albedo,
             gmt=gmt, time_since_ae=time_since_ae, dt_rad_avg=dt_rad_radians)
-        rad = self.radiation.up(rad_down, p_half_curr, t_surf, albedo)
+        rad_up = self.radiation.up(rad_down, p_half_curr, t_surf, albedo)
+        rad = RadCache(
+            tdt_rad=rad_up.tdt_rad, tdt_solar=rad_up.tdt_solar, olr=rad_up.olr,
+            net_surf_sw_down=rad_down.net_surf_sw_down,
+            surf_lw_down=rad_down.surf_lw_down, coszen=rad_down.coszen,
+            net_lw_surf=rad_up.net_lw_surf,
+            age=torch.ones((), dtype=torch.int32, device=t_prev.device))
 
         # ---- surface fluxes (lowest level, previous) ----
         z_surf = z_half_curr[..., -1]
@@ -207,12 +256,24 @@ class MoistPhysics:
 
         # ---- radiation heating added to dt_t ----
         dt_t = dt_t + rad.tdt_rad
-        diag.update(olr=rad.olr, swdn_sfc=rad_down.net_surf_sw_down,
-                    lwdn_sfc=rad_down.surf_lw_down, tdt_rad=rad.tdt_rad,
-                    coszen=rad_down.coszen)
+        diag.update(olr=rad.olr, swdn_sfc=rad.net_surf_sw_down,
+                    lwdn_sfc=rad.surf_lw_down, tdt_rad=rad.tdt_rad,
+                    coszen=rad.coszen)
+
+        # ---- upper-atmosphere damping (Rayleigh sponge, constant drag) ----
+        if cfg.do_damping:
+            dmp = damping_driver(
+                cfg.damping, delta_t, p_full_curr, u_prev, v_prev,
+                dt_u, dt_v, dt_t, lat2d=self.lat2d,
+                day_of_year=time_seconds / C.seconds_per_day,
+                days_per_year=C.orbital_period / C.seconds_per_day,
+            )
+            dt_u, dt_v, dt_t = dmp.dt_u, dmp.dt_v, dmp.dt_t
+            diag.update(dmp.diagnostics)
 
         if not cfg.turb:
-            return MoistPhysicsResult(dt_u, dt_v, dt_t, dt_q, t_surf, diag)
+            return MoistPhysicsResult(dt_u, dt_v, dt_t, dt_q, t_surf, diag,
+                                      rad_cache=rad)
 
         # ---- boundary-layer diffusivities ----
         bl = diffusivity(
@@ -238,7 +299,7 @@ class MoistPhysics:
             ml = mixed_layer_step(
                 cfg.mixed_layer, dt_real, t_surf, down.tri,
                 sf.flux_t, sf.flux_q, sf.flux_r,
-                rad_down.net_surf_sw_down, rad_down.surf_lw_down,
+                rad.net_surf_sw_down, rad.surf_lw_down,
                 sf.dhdt_surf, sf.dedt_surf, sf.dedq_surf, sf.drdt_surf,
                 sf.dhdt_atm, sf.dedq_atm,
                 ocean_qflux=self.ocean_qflux,
@@ -253,4 +314,5 @@ class MoistPhysics:
             tri = down.tri
             t_surf_out = t_surf
         dt_t, dt_q = gcm_vert_diff_up(delta_t, tri)
-        return MoistPhysicsResult(dt_u, dt_v, dt_t, dt_q, t_surf_out, diag)
+        return MoistPhysicsResult(dt_u, dt_v, dt_t, dt_q, t_surf_out, diag,
+                                  rad_cache=rad)

@@ -1,14 +1,39 @@
-"""Input-file handling: regridding.
+"""Input-file handling: NetCDF reading and regridding.
 
-Port of one function of isca_tpu/utils/input_files.py, `regrid_bilinear`,
-which `io/restart.change_resolution` needs. The rest of that module (NetCDF
-readers, topography and conservative regridding) belongs to the moist GCM's
-boundary-condition pipeline and is not ported yet. Host-side numpy.
+Port of two functions of isca_tpu/utils/input_files.py: `read_netcdf`,
+which `dycore/initial_conditions.apply_external_file` needs, and
+`regrid_bilinear`, which `io/restart.change_resolution` needs. The rest of
+that module (topography and conservative regridding) belongs to the moist
+GCM's land pipeline and is not ported yet (ROADMAP A.5). Host-side numpy.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def read_netcdf(path: str) -> dict:
+    """Read all variables of a NetCDF file: classic (NetCDF-3) through
+    scipy, NetCDF-4 (HDF5) through h5py where it is installed."""
+    from scipy.io import netcdf_file
+
+    try:
+        with netcdf_file(path, "r", mmap=False) as nc:
+            return {k: np.array(v[:]) for k, v in nc.variables.items()}
+    except TypeError as exc:    # scipy: "... is not a valid NetCDF 3 file"
+        try:
+            import h5py
+        except ImportError:
+            raise ImportError(
+                f"{path} is not a classic NetCDF-3 file, and reading NetCDF-4 "
+                "(HDF5) needs h5py, which is not installed") from exc
+    out = {}
+    with h5py.File(path, "r") as f:
+        def visit(name, obj):
+            if isinstance(obj, h5py.Dataset):
+                out[name.split("/")[-1]] = np.array(obj[...])
+        f.visititems(visit)
+    return out
 
 
 def regrid_bilinear(lat_in, lon_in, data, lat_out, lon_out):

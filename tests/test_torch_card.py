@@ -1,7 +1,9 @@
 """isca_tpu_torch on a CUDA card: the sw_flux kernel against its plain
 PyTorch version, the wrapper's input checks, the column model's use of the
 kernel, the Held-Suarez model and its extended diagnostics on the card
-against the CPU, and the run harness (Experiment, restarts) on the card.
+against the CPU, the run harness (Experiment, restarts) on the card, and the
+grey-moist Frierson GCM (T42L25 against the CPU, its RRTM variant's use of
+the kernel, its restarts).
 Every test here needs a CUDA device and skips without one.
 
 This file imports torch, numpy and isca_tpu_torch only, so it runs where JAX
@@ -207,3 +209,69 @@ def test_spectral_diagnostics_on_card_matches_cpu():
     for k in cpu64:
         gap = np.abs(cpu32[k] - cpu64[k]).max()
         assert np.abs(gpu[k] - cpu32[k]).max() <= 3.0 * gap, k
+
+
+# ---------------------------------------------------------------------------
+# the grey-moist Frierson GCM
+# ---------------------------------------------------------------------------
+
+FRIERSON_FIELDS = ("ps", "ucomp", "vcomp", "temp", "vor", "div", "omega", "sphum", "t_surf")
+
+
+def frierson(dtype=torch.float32, device=None, small=False, **physics):
+    """frierson_test_case_config(): T42L25 as published, or cut to T21L8
+    (every third level of the Frierson sigma ladder)."""
+    import dataclasses
+
+    from isca_tpu_torch.models import moist
+
+    cfg = moist.frierson_test_case_config(dtype=dtype)
+    if small:
+        bk = tuple(moist.FRIERSON_BK[i] for i in (0, 3, 6, 9, 12, 15, 18, 21, 25))
+        cfg = dataclasses.replace(cfg, core=dataclasses.replace(
+            cfg.core, resolution="T21", num_levels=8,
+            vert_coord_kwargs=(("bk", bk), ("pk", (0.0,) * 9))))
+    if physics:
+        cfg = dataclasses.replace(cfg, physics=dataclasses.replace(cfg.physics, **physics))
+    return moist.GreyMoistModel(cfg, device=device)
+
+
+def test_frierson_T42L25_on_card_matches_cpu():
+    """3 float32 steps from cold start on the card and on the CPU: each field
+    within 3x the CPU's own float32-versus-float64 difference (chip_smoke.py's
+    moist rule)."""
+    def fields(dtype, device):
+        model = frierson(dtype, device)
+        state = model.run(model.initial_state(), 3)
+        assert state.dyn.tg.curr.device.type == torch.device(device).type
+        return {k: v.cpu().numpy().astype(np.float64)
+                for k, v in model.diag_fields(state).items() if k in FRIERSON_FIELDS}
+
+    gpu, cpu32, cpu64 = (fields(torch.float32, "cuda"), fields(torch.float32, "cpu"),
+                         fields(torch.float64, "cpu"))
+    for k in FRIERSON_FIELDS:
+        gap = np.abs(cpu32[k] - cpu64[k]).max()
+        assert np.abs(gpu[k] - cpu32[k]).max() <= 3.0 * gap, k
+
+
+def test_rrtm_grey_gcm_launches_sw_flux_each_step():
+    model = frierson(small=True, radiation_scheme="rrtm",
+                     rrtm=RRTMConfig(lw_scheme="grey"))
+    before = P.sw_flux_solve.launches
+    state = model.run(model.initial_state(), 3)
+    torch.cuda.synchronize()
+    assert P.sw_flux_solve.launches == before + 3
+    assert bool(torch.isfinite(state.dyn.tg.curr).all())
+
+
+def test_frierson_restart_round_trip_on_card(tmp_path):
+    """A Frierson state through a restart file is equal on every leaf, and a
+    step from it equals a step from the state itself."""
+    model = frierson(small=True)
+    state = model.run(model.initial_state(), 3)
+    path = str(tmp_path / "res.npz")
+    save_restart(path, state)
+    back = load_restart(path, model.initial_state())
+    assert back.time_seconds.dtype == torch.float32 and back.rad_cache.age.dtype == torch.int32
+    assert_states_equal(back, state)
+    assert_states_equal(model.step(back), model.step(state))

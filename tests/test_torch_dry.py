@@ -183,10 +183,12 @@ def test_unported_model_options_raise(monkeypatch):
     # holds it against isca_tpu); the options below still raise
     assert {"slp", "EKE", "vort_norm"} <= set(tm.diag_fields(tm.initial_state(), extended=True))
     core = TPC(dtype=torch.float64, **SHAPE)
-    for bad in (dict(do_water_correction=True), dict(mesh=object()),
-                dict(transform_precision="high")):
+    for bad in (dict(mesh=object()), dict(transform_precision="high")):
         with pytest.raises(NotImplementedError):
             THSM(THSC(core=dataclasses.replace(core, **bad)), device="cpu")
+    # the water fixer is ported; the dry model has no sphum tracer for it
+    with pytest.raises(ValueError, match="sphum"):
+        THSM(THSC(core=dataclasses.replace(core, do_water_correction=True)), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         THSM(THSC(core=core))

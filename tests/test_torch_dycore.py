@@ -404,9 +404,9 @@ def test_cold_start_levels_share_and_step_keeps_them():
 
 def test_unported_core_options_raise():
     base = TPC(dtype=torch.float64, **SHAPE)
-    with pytest.raises(NotImplementedError, match="tracers"):
-        TCore(base, tracer_attrs=("sphum",), device="cpu")
-    with pytest.raises(NotImplementedError, match="water"):
+    # tracers and the water fixer are ported (tests/test_torch_tracers.py);
+    # the fixer still needs a sphum tracer to fix
+    with pytest.raises(ValueError, match="sphum"):
         TCore(dataclasses.replace(base, do_water_correction=True), device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
         TCore(dataclasses.replace(base, mesh=object()), device="cpu")

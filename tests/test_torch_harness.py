@@ -571,7 +571,7 @@ def test_cli_matches_isca_tpu(tmp_path):
             assert gap > 0 and np.abs(a - b).max() <= 3.0 * gap, (run, k)
 
 
-@pytest.mark.parametrize("model", ["frierson", "barotropic", "shallow", "giant"])
+@pytest.mark.parametrize("model", ["barotropic", "shallow", "giant"])
 def test_cli_unported_models_raise(model, tmp_path):
     assert model in tmain.MODELS and tmain.MODELS == jmain.MODELS
     with pytest.raises(NotImplementedError, match=r"A\.[45]"):

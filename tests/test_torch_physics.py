@@ -27,6 +27,7 @@ from isca_tpu.physics import rrtm_radiation as jrr
 from isca_tpu.physics import sat_vapor_pres as jsvp
 from isca_tpu.physics import surface_flux as jsf
 from isca_tpu.physics import vert_diff as jvd
+from isca_tpu_torch.physics import damping_driver as tdd
 from isca_tpu_torch.physics import diffusivity as tdf
 from isca_tpu_torch.physics import lscale_cond as tlc
 from isca_tpu_torch.physics import mixed_layer as tml
@@ -271,7 +272,10 @@ def test_rrtm_radiation_matches(kw):
 def test_unported_options_raise():
     lats, lons = torch.zeros(2, dtype=torch.float64), torch.zeros(3, dtype=torch.float64)
     for kw in (dict(convection_scheme="RAS"), dict(convection_scheme="FULL_BETTS_MILLER"),
-               dict(convection_scheme="DRY"), dict(do_damping=True), dict(gp_surface=True),
+               dict(convection_scheme="DRY"), dict(gp_surface=True),
+               # the damping driver is ported but for its gravity-wave drags
+               dict(do_damping=True, damping=tdd.DampingDriverConfig(do_mg_drag=True)),
+               dict(do_damping=True, damping=tdd.DampingDriverConfig(do_cg_drag=True)),
                dict(bucket=True), dict(do_cloud_simple=True), dict(bl_scheme="edt"),
                dict(radiation_scheme="socrates"), dict(do_shallow_conv=True)):
         with pytest.raises(NotImplementedError):
