@@ -63,6 +63,33 @@ Phases, each printed as one JSON line:
            "physics" and "dynamics" ranges); then runs the same GCM with
            RRTM radiation (RRTMG-SW + grey LW) for a few steps, in which
            sw_flux must launch exactly once per step.
+  simple   drives the stirred barotropic model
+           (barotropic_vorticity_equation_test_case.py) and the shallow-water
+           model (shallow_water_test_case.py) at T85 (128 x 256), dt = 1200 s,
+           float32, nothing cut: 3 steps against the CPU within 3x the CPU's
+           own float32-versus-float64 difference per field (s_stir among
+           them; the float64 run is stirred by the float32 draws), the
+           threefry key and the stirring draws equal to the CPU's
+           bit for bit; a one-day warm-up, three timed one-day runs (72
+           steps), ms per step, their median and <model>_T85_model_days_per_day;
+           launches per step, device ms and idle share over 2 more steps, and
+           the "stirring" and "threefry" ranges' launches.
+  giant    giant_planet_model() (T42L30) 3 steps against the CPU as above;
+           then the reference test case's T213L30 (dt = 1800 s, cutoff_wn =
+           100, float32): 4 warm-up steps, three timed 10-step runs, median
+           ms per step, giant_T213L30_model_days_per_day, launches per step,
+           idle share, peak memory.
+  moist_land
+           the realistic-continents GCM (realistic_continents_test_case.py:
+           GreyMoistConfig() T42L25 with the bucket, the idealized continents
+           and the band-limited Sauliere 2012 topography through set_land),
+           float32: 3 steps against the CPU (bucket_depth among the fields),
+           timed runs, launches per step, idle share; the land's bucket must
+           stay within [0, max_bucket_depth_land].
+These three run after `moist_rrtm`; sw_flux must not launch on their paths
+(its count on each is printed). `experiment` also runs the stirred
+barotropic model in two chained one-day segments, held to the bit (the
+stirring key too) against one direct two-day run.
 Then the `{"kernels": [...]}` summary line, the raw `nvidia-smi` name and
 power limit line, and last `{"ok": true, "device": {...}}`. Any failed phase
 raises, so the script exits non-zero and prints no last line; so does a run
@@ -71,12 +98,14 @@ without a CUDA device.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -115,6 +144,49 @@ def nvidia_smi_name_power():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def gap_compare(gpu, cpu32, cpu64, factor, fields):
+    """Each field's largest card-versus-CPU float32 difference against
+    `factor` times the CPU's own float32-versus-float64 difference."""
+    compare, ok = {}, True
+    for k in fields:
+        gap = float(np.abs(cpu32[k] - cpu64[k]).max())
+        err = float(np.abs(gpu[k] - cpu32[k]).max())
+        compare[k] = {"max_abs_diff": err, "tolerance": factor * gap, "cpu_f32_vs_f64": gap,
+                      "card_vs_cpu_f64": float(np.abs(gpu[k] - cpu64[k]).max())}
+        ok = ok and err <= factor * gap
+    return compare, ok
+
+
+def _timed_runs(model, state, warmup, steps, runs_n):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = model.run(state, warmup, first=False)
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for _ in range(runs_n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = model.run(state, steps, first=False)
+        torch.cuda.synchronize()
+        runs.append(1e3 * (time.perf_counter() - t0) / steps)
+    return state, warmup_s, runs
+
+
+def _gcm_valid(name, model, state):
+    d = state.dyn
+    finite = all(bool(torch.isfinite(x).all()) for x in
+                 (d.ug.curr, d.vg.curr, d.tg.curr, d.psg.curr, d.tracers["sphum"].curr,
+                  state.t_surf, state.bucket_depth.curr))
+    valid = model.validity(state)
+    if not finite or not bool(valid.ok):
+        raise RuntimeError(f"{name}: state after the timed runs is not finite or out of "
+                           f"range (finite={finite}, T in [{float(valid.vmin)}, "
+                           f"{float(valid.vmax)}])")
+    return [float(valid.vmin), float(valid.vmax)]
 
 
 # ---------------------------------------------------------------------------
@@ -354,7 +426,8 @@ HS_FIELDS = ("ucomp", "vcomp", "temp", "ps", "vor", "div")
 HS_TOL_FACTOR = 3.0
 HS_STAGES = ("dft", "legendre", "implicit")
 MOIST_STAGES = ("physics", "dynamics")
-ALL_STAGES = HS_STAGES + MOIST_STAGES
+STIR_STAGES = ("stirring", "threefry")
+ALL_STAGES = HS_STAGES + MOIST_STAGES + STIR_STAGES
 
 
 def hs_config(dtype):
@@ -387,13 +460,7 @@ def phase_dycore():
     T = model.core.T
     state = model.run(model.initial_state(), HS_COMPARE_STEPS)
     gpu = hs_fields(model, state)
-    compare, ok = {}, True
-    for k in HS_FIELDS:
-        gap = float(np.abs(cpu["float32"][k] - cpu["float64"][k]).max())
-        err = float(np.abs(gpu[k] - cpu["float32"][k]).max())
-        compare[k] = {"max_abs_diff": err, "tolerance": HS_TOL_FACTOR * gap,
-                      "cpu_f32_vs_f64": gap}
-        ok = ok and err <= HS_TOL_FACTOR * gap
+    compare, ok = gap_compare(gpu, cpu["float32"], cpu["float64"], HS_TOL_FACTOR, HS_FIELDS)
     if not ok:
         raise RuntimeError(f"dycore: card and CPU runs disagree after "
                            f"{HS_COMPARE_STEPS} steps: {compare}")
@@ -558,15 +625,8 @@ def phase_moist():
     model = GreyMoistModel(frierson_config(torch.float32))
     T = model.core.T
     gpu, gpu_conv, state = _moist_compare_run(model)
-    compare, ok = {}, True
-    for k in FR_FIELDS:
-        ref32, ref64 = cpu["float32"][0][k], cpu["float64"][0][k]
-        gap = float(np.abs(ref32 - ref64).max())
-        err = float(np.abs(gpu[k] - ref32).max())
-        compare[k] = {"max_abs_diff": err, "tolerance": FR_TOL_FACTOR * gap,
-                      "cpu_f32_vs_f64": gap,
-                      "card_vs_cpu_f64": float(np.abs(gpu[k] - ref64).max())}
-        ok = ok and err <= FR_TOL_FACTOR * gap
+    compare, ok = gap_compare(gpu, cpu["float32"][0], cpu["float64"][0], FR_TOL_FACTOR,
+                              FR_FIELDS)
     # a convection threshold that flips between two float32 runs shows as a
     # column convecting in one and not the other
     flips = {"card_vs_cpu_f32": int((gpu_conv != cpu["float32"][1]).sum()),
@@ -576,29 +636,10 @@ def phase_moist():
         raise RuntimeError(f"moist: card and CPU runs disagree after {FR_COMPARE_STEPS} "
                            f"steps: {compare}; convection flips {flips}")
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    state = model.run(state, FR_WARMUP_STEPS, first=False)
-    torch.cuda.synchronize()
-    warmup_s = time.perf_counter() - t0
-    torch.cuda.reset_peak_memory_stats()
-    runs = []
-    for _ in range(FR_TIMED_RUNS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state = model.run(state, FR_TIMED_STEPS, first=False)
-        torch.cuda.synchronize()
-        runs.append(1e3 * (time.perf_counter() - t0) / FR_TIMED_STEPS)
+    state, warmup_s, runs = _timed_runs(model, state, FR_WARMUP_STEPS, FR_TIMED_STEPS,
+                                        FR_TIMED_RUNS)
     ms_per_step = statistics.median(runs)
-    d = state.dyn
-    finite = all(bool(torch.isfinite(x).all()) for x in
-                 (d.ug.curr, d.vg.curr, d.tg.curr, d.psg.curr, d.tracers["sphum"].curr,
-                  state.t_surf))
-    valid = model.validity(state)
-    if not finite or not bool(valid.ok):
-        raise RuntimeError(f"moist: state after the timed runs is not finite or out of "
-                           f"range (finite={finite}, T in [{float(valid.vmin)}, "
-                           f"{float(valid.vmax)}])")
+    t_range = _gcm_valid("moist", model, state)
     core = model.config.core
     emit({"phase": "moist", "model": "frierson_test_case", "resolution": core.resolution,
           "grid": [T.nlat, T.nlon], "spectral": list(T.spec_shape),
@@ -612,7 +653,7 @@ def phase_moist():
           "ms_per_step_runs": runs, "ms_per_step_median": ms_per_step,
           "metric": "frierson_T42L25_model_days_per_day",
           "value": core.dt / (ms_per_step * 1e-3), "unit": "model-days/day (one GPU)",
-          "finite": finite, "t_range": [float(valid.vmin), float(valid.vmax)],
+          "finite": True, "t_range": t_range,
           "peak_memory_mb": torch.cuda.max_memory_allocated() / 2**20})
     return model, state, ms_per_step
 
@@ -662,6 +703,315 @@ def phase_moist_rrtm():
           "ms_per_step": 1e3 * seconds / FR_RRTM_STEPS, "finite": finite,
           "swdn_sfc_max": float(diag["swdn_sfc"].max())})
     return launches
+
+
+# ---------------------------------------------------------------------------
+# simple: the stirred barotropic and the shallow-water models at T85
+# ---------------------------------------------------------------------------
+
+SIMPLE_STEPS_PER_DAY, SIMPLE_TIMED_DAYS, SIMPLE_COMPARE_STEPS = 72, 3, 3
+# as HS_TOL_FACTOR: per field, within this factor times the CPU's own
+# float32-versus-float64 difference after the same steps
+SIMPLE_TOL_FACTOR = 3.0
+# the float64 reference's first s_stir against the float32 run's, relative to
+# its largest coefficient: float32 rounding of the same draws
+STIR_RTOL = 1e-5
+
+
+def simple_config(kind, dtype):
+    """exp/test_cases/barotropic_vorticity_equation_test_case.py and
+    shallow_water_test_case.py at their T85 (128 x 256), dt = 1200 s."""
+    if kind == "barotropic":
+        from isca_tpu_torch.models.barotropic import BarotropicConfig
+        return BarotropicConfig(resolution="T85", dt=1200.0, initial_zonal_wind="zero",
+                                stirring_amplitude=3.0e-11, damping_order=2,
+                                damping_coeff_r=1.929e-6, dtype=dtype)
+    from isca_tpu_torch.models.shallow import ShallowConfig
+    return ShallowConfig(resolution="T85", dt=1200.0, dtype=dtype)
+
+
+def simple_model(kind, dtype, device=None):
+    from isca_tpu_torch.models.barotropic import BarotropicModel
+    from isca_tpu_torch.models.shallow import ShallowModel
+
+    cls = BarotropicModel if kind == "barotropic" else ShallowModel
+    return cls(simple_config(kind, dtype), device=device)
+
+
+def _simple_fields(model, state):
+    out = {k: v.detach().cpu().numpy().astype(np.float64)
+           for k, v in model.diag_fields(state).items()}
+    out["s_stir"] = state.s_stir.detach().cpu().numpy().astype(np.complex128)
+    return out
+
+
+def _draws_bit_equal(card_key, cpu_key):
+    """The key, and the next step's stirring draws from it at float32 and
+    float64, on the card against the CPU, bit for bit."""
+    from isca_tpu_torch.utils import threefry
+
+    if not torch.equal(card_key.cpu(), cpu_key):
+        return False
+    shape = (86, 87, 2)         # T85's spectral (m, n) shape, real and imaginary parts
+    for dtype, bits in ((torch.float32, torch.int32), (torch.float64, torch.int64)):
+        a = threefry.uniform(threefry.split(card_key)[1], shape, dtype, -1.0, 1.0).cpu()
+        b = threefry.uniform(threefry.split(cpu_key)[1], shape, dtype, -1.0, 1.0)
+        if not torch.equal(a.view(bits), b.view(bits)):
+            return False
+    return True
+
+
+@contextlib.contextmanager
+def float32_draws():
+    """Stirring draws at float32 whatever the model's dtype, cast to it.
+
+    At float64 threefry turns other bits into the mantissa than at float32,
+    so a float64 run is stirred by other random numbers, and its difference
+    from a float32 run would be the forcing's, not rounding. The float64
+    reference run is given the float32 run's draws instead."""
+    from isca_tpu_torch.physics import stirring
+    from isca_tpu_torch.utils import threefry
+
+    shim = types.SimpleNamespace(
+        split=threefry.split,
+        uniform=lambda key, shape, dtype, lo, hi: threefry.uniform(
+            key, shape, torch.float32, lo, hi).to(dtype))
+    stirring.threefry = shim
+    try:
+        yield
+    finally:
+        stirring.threefry = threefry
+
+
+def _run_simple(kind):
+    from isca_tpu_torch.physics import rrtmg_sw
+
+    cpu, first_stir = {}, {}
+    for name, dtype in (("float32", torch.float32), ("float64", torch.float64)):
+        m = simple_model(kind, dtype, device="cpu")
+        s0 = m.initial_state()
+        with float32_draws():
+            s1 = m.step(s0, first=True)
+            s = m.run(s1, SIMPLE_COMPARE_STEPS - 1, first=False)
+        cpu[name] = (_simple_fields(m, s), s0.rng, s.rng)
+        first_stir[name] = s1.s_stir.numpy().astype(np.complex128)
+    # the float64 reference must be stirred by the float32 run's draws, or its
+    # gap is the forcing's and not rounding: the first forcings agree to
+    # float32 rounding (zero on both without stirring)
+    scale = float(np.abs(first_stir["float32"]).max())
+    stir_gap = float(np.abs(first_stir["float64"] - first_stir["float32"]).max())
+    if (scale > 0.0) != (m.config.stirring_amplitude != 0.0) or stir_gap > STIR_RTOL * scale:
+        raise RuntimeError(f"simple {kind}: the float64 reference run was not stirred by the "
+                           f"float32 draws (first s_stir max {scale}, gap {stir_gap})")
+    torch.cuda.synchronize()
+    rrtmg_sw.sw_flux_solve.launches = 0
+    model = simple_model(kind, torch.float32)
+    T = model.T
+    state0 = model.initial_state()
+    state = model.run(state0, SIMPLE_COMPARE_STEPS)
+    gpu = _simple_fields(model, state)
+    compare, ok = gap_compare(gpu, cpu["float32"][0], cpu["float64"][0], SIMPLE_TOL_FACTOR,
+                              list(gpu))
+    # the first step's draws, and the key and next draws after the compared steps
+    bits_equal = (_draws_bit_equal(state0.rng, cpu["float32"][1])
+                  and _draws_bit_equal(state.rng, cpu["float32"][2])
+                  and torch.equal(cpu["float32"][2], cpu["float64"][2]))
+    if not ok or not bits_equal:
+        raise RuntimeError(f"simple {kind}: card and CPU runs disagree after "
+                           f"{SIMPLE_COMPARE_STEPS} steps: {compare}; key and draws "
+                           f"bit-equal: {bits_equal}")
+
+    state = model.run(model.initial_state(), 1, first=True)
+    state, warmup_s, runs = _timed_runs(model, state, SIMPLE_STEPS_PER_DAY - 1,
+                                        SIMPLE_STEPS_PER_DAY, SIMPLE_TIMED_DAYS)
+    sw_launches = rrtmg_sw.sw_flux_solve.launches
+    ms_per_step = statistics.median(runs)
+    valid = model.validity(state)
+    finite = bool(torch.isfinite(state.vorg.curr).all()) and bool(valid.ok)
+    if not finite:
+        raise RuntimeError(f"simple {kind}: state after {SIMPLE_TIMED_DAYS + 1} days is not "
+                           f"finite or its winds out of range [{float(valid.vmin)}, "
+                           f"{float(valid.vmax)}]")
+    stages = ("dft", "legendre") + (STIR_STAGES if kind == "barotropic" else ())
+    kernels, device_ms, stage_rows, _ = profile_stages(model, state, stages)
+    launches = sum(e.count for e in kernels) / 2
+    stir_launches = stage_rows.get("stirring", {}).get("launches_per_step", 0.0)
+    c = model.config
+    return {"model": kind, "resolution": c.resolution, "grid": [T.nlat, T.nlon],
+            "spectral": list(T.spec_shape), "dt": c.dt, "dtype": str(c.dtype),
+            "stirring_amplitude": c.stirring_amplitude,
+            "width": "full: the test case's T85; nothing cut",
+            "compare_steps": SIMPLE_COMPARE_STEPS, "tolerance_factor": SIMPLE_TOL_FACTOR,
+            "compare": compare, "key_and_draws_bit_equal": True,
+            "reference_first_s_stir_gap": stir_gap, "reference_first_s_stir_max": scale,
+            "warmup_steps": SIMPLE_STEPS_PER_DAY, "warmup_s": warmup_s,
+            "steps_per_day": SIMPLE_STEPS_PER_DAY,
+            "ms_per_step_runs": runs, "ms_per_step_median": ms_per_step,
+            "metric": f"{kind}_T85_model_days_per_day",
+            "value": c.dt / (ms_per_step * 1e-3), "unit": "model-days/day (one GPU)",
+            "launches_per_step": launches, "device_ms_per_step": device_ms,
+            "idle_share": 1.0 - device_ms / ms_per_step, "stages": stage_rows,
+            "stirring_launches_per_step": stir_launches,
+            "stirring_launch_share": stir_launches / launches,
+            "sw_flux_launches": sw_launches}
+
+
+def phase_simple():
+    """Both simple models on the card; returns the stirred barotropic model
+    (for `experiment`) and each path's sw_flux launches."""
+    out = {kind: _run_simple(kind) for kind in ("barotropic", "shallow")}
+    emit({"phase": "simple", **out})
+    return {f"simple_{k}": v["sw_flux_launches"] for k, v in out.items()}
+
+
+# ---------------------------------------------------------------------------
+# giant: the giant planet at the reference's T213L30
+# ---------------------------------------------------------------------------
+
+GIANT_COMPARE_STEPS, GIANT_WARMUP_STEPS, GIANT_TIMED_STEPS, GIANT_TIMED_RUNS = 3, 4, 10, 3
+# a dry giant planet carries no water (initial_sphum = 0) and no slab
+# (t_surf is never updated), so sphum and t_surf are left out
+GIANT_FIELDS = ("ps", "ucomp", "vcomp", "temp", "vor", "div", "omega")
+GIANT_BIG = dict(resolution="T213", num_levels=30, dt=1800.0, cutoff_wn=100)
+
+
+def _gcm_compare_run(model, fields, steps):
+    """`steps` steps from cold start: the named fields (bucket_depth among
+    them when asked) as float64 numpy."""
+    state = model.run(model.initial_state(), steps)
+    out = {k: v.detach().cpu().numpy().astype(np.float64)
+           for k, v in model.diag_fields(state).items() if k in fields}
+    if "bucket_depth" in fields:
+        out["bucket_depth"] = state.bucket_depth.curr.cpu().numpy().astype(np.float64)
+    return out, state
+
+
+def phase_giant():
+    """The giant planet: accuracy at the CLI's T42L30, speed at T213L30.
+    Returns its sw_flux launches."""
+    from isca_tpu_torch.models.giant import giant_planet_model
+    from isca_tpu_torch.physics import rrtmg_sw
+
+    cpu = {name: _gcm_compare_run(giant_planet_model(dtype=dtype, device="cpu"),
+                                  GIANT_FIELDS, GIANT_COMPARE_STEPS)[0]
+           for name, dtype in (("float32", torch.float32), ("float64", torch.float64))}
+    torch.cuda.synchronize()
+    rrtmg_sw.sw_flux_solve.launches = 0
+    gpu, _ = _gcm_compare_run(giant_planet_model(dtype=torch.float32), GIANT_FIELDS,
+                              GIANT_COMPARE_STEPS)
+    compare, ok = gap_compare(gpu, cpu["float32"], cpu["float64"], FR_TOL_FACTOR, GIANT_FIELDS)
+    if not ok:
+        raise RuntimeError(f"giant: card and CPU runs disagree after {GIANT_COMPARE_STEPS} "
+                           f"steps at T42L30: {compare}")
+
+    model = giant_planet_model(dtype=torch.float32, **GIANT_BIG)
+    T = model.core.T
+    state = model.run(model.initial_state(), 1, first=True)
+    state, warmup_s, runs = _timed_runs(model, state, GIANT_WARMUP_STEPS - 1,
+                                        GIANT_TIMED_STEPS, GIANT_TIMED_RUNS)
+    sw_launches = rrtmg_sw.sw_flux_solve.launches
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    t_range = _gcm_valid("giant", model, state)
+    ms_per_step = statistics.median(runs)
+    kernels, device_ms, stage_rows, _ = profile_stages(model, state, MOIST_STAGES)
+    core = model.config.core
+    emit({"phase": "giant", "model": "giant_planet_model", "resolution": core.resolution,
+          "grid": [T.nlat, T.nlon], "spectral": list(T.spec_shape),
+          "levels": core.num_levels, "dt": core.dt, "cutoff_wn": core.cutoff_wn,
+          "dtype": str(core.dtype),
+          "width": "full: the reference test case's T213L30; nothing cut",
+          "compare_at": "giant_planet_model() defaults, T42L30 (a float64 CPU run at "
+                        "T213L30 would take minutes)",
+          "compare_steps": GIANT_COMPARE_STEPS, "tolerance_factor": FR_TOL_FACTOR,
+          "compare": compare, "warmup_steps": GIANT_WARMUP_STEPS, "warmup_s": warmup_s,
+          "timed_runs": GIANT_TIMED_RUNS, "steps_per_run": GIANT_TIMED_STEPS,
+          "ms_per_step_runs": runs, "ms_per_step_median": ms_per_step,
+          "metric": "giant_T213L30_model_days_per_day",
+          "value": core.dt / (ms_per_step * 1e-3), "unit": "model-days/day (one GPU)",
+          "launches_per_step": sum(e.count for e in kernels) / 2,
+          "device_ms_per_step": device_ms, "idle_share": 1.0 - device_ms / ms_per_step,
+          "stages": {k: {f: v[f] for f in ("device_ms_per_step", "launches_per_step")}
+                     for k, v in stage_rows.items()},
+          "t_range": t_range, "peak_memory_mb": peak_mb, "sw_flux_launches": sw_launches})
+    return {"giant": sw_launches}
+
+
+# ---------------------------------------------------------------------------
+# moist_land: the realistic-continents GCM with bucket hydrology at T42L25
+# ---------------------------------------------------------------------------
+
+LAND_FIELDS = FR_FIELDS + ("bucket_depth",)
+
+
+def continents_model(dtype, device=None):
+    """exp/test_cases/realistic_continents_test_case.py: GreyMoistConfig()
+    (T42L25, dt = 720 s) with the bucket, the idealized continents and the
+    Sauliere 2012 topography band-limited through the model's truncation."""
+    from isca_tpu_torch.models.moist import GreyMoistConfig, GreyMoistModel
+    from isca_tpu_torch.utils.land_generator import generate_land
+    from isca_tpu_torch.utils.topography import band_limit_topography
+
+    cfg = GreyMoistConfig()
+    cfg = dataclasses.replace(
+        cfg, core=dataclasses.replace(cfg.core, dtype=dtype, transform_precision="highest"),
+        physics=dataclasses.replace(cfg.physics, bucket=True))
+    model = GreyMoistModel(cfg, device=device)
+    T = model.core.T
+    lats, lons = np.degrees(T.lats.cpu().numpy()), np.degrees(T.lons.cpu().numpy())
+    land, topo = generate_land(lats, lons, "continents", topo_mode="sauliere2012")
+    topo = band_limit_topography(T, np.asarray(topo, np.float64), n_smooth_passes=2,
+                                 smooth_fraction=0.02)
+    model.set_land(land, surf_geopotential=topo)
+    return model
+
+
+def phase_moist_land():
+    """The realistic-continents GCM on the card. Returns its sw_flux launches."""
+    from isca_tpu_torch.physics import rrtmg_sw
+
+    cpu = {name: _gcm_compare_run(continents_model(dtype, device="cpu"), LAND_FIELDS,
+                                  FR_COMPARE_STEPS)[0]
+           for name, dtype in (("float32", torch.float32), ("float64", torch.float64))}
+    torch.cuda.synchronize()
+    rrtmg_sw.sw_flux_solve.launches = 0
+    model = continents_model(torch.float32)
+    T = model.core.T
+    gpu, state = _gcm_compare_run(model, LAND_FIELDS, FR_COMPARE_STEPS)
+    compare, ok = gap_compare(gpu, cpu["float32"], cpu["float64"], FR_TOL_FACTOR, LAND_FIELDS)
+    if not ok:
+        raise RuntimeError(f"moist_land: card and CPU runs disagree after {FR_COMPARE_STEPS} "
+                           f"steps: {compare}")
+    state, warmup_s, runs = _timed_runs(model, state, FR_WARMUP_STEPS, FR_TIMED_STEPS,
+                                        FR_TIMED_RUNS)
+    sw_launches = rrtmg_sw.sw_flux_solve.launches
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    t_range = _gcm_valid("moist_land", model, state)
+    land = model.land_mask > 0.5
+    depth = state.bucket_depth.curr
+    cap = model.config.physics.max_bucket_depth_land
+    if not bool((depth[land] <= cap).all()) or not bool((depth >= 0).all()):
+        raise RuntimeError("moist_land: a bucket depth left [0, cap] over land")
+    ms_per_step = statistics.median(runs)
+    kernels, device_ms, stage_rows, _ = profile_stages(model, state, MOIST_STAGES)
+    core = model.config.core
+    emit({"phase": "moist_land", "model": "realistic_continents", "resolution": core.resolution,
+          "grid": [T.nlat, T.nlon], "levels": core.num_levels, "dt": core.dt,
+          "dtype": str(core.dtype), "land_fraction": float(land.float().mean()),
+          "zsurf_max_m": float(model.physics.zsurf.max()),
+          "width": "full: realistic_continents_test_case.py's T42L25; nothing cut",
+          "compare_steps": FR_COMPARE_STEPS, "tolerance_factor": FR_TOL_FACTOR,
+          "compare": compare, "warmup_steps": FR_WARMUP_STEPS, "warmup_s": warmup_s,
+          "timed_runs": FR_TIMED_RUNS, "steps_per_run": FR_TIMED_STEPS,
+          "ms_per_step_runs": runs, "ms_per_step_median": ms_per_step,
+          "metric": "realistic_continents_T42L25_model_days_per_day",
+          "value": core.dt / (ms_per_step * 1e-3), "unit": "model-days/day (one GPU)",
+          "launches_per_step": sum(e.count for e in kernels) / 2,
+          "device_ms_per_step": device_ms, "idle_share": 1.0 - device_ms / ms_per_step,
+          "stages": {k: {f: v[f] for f in ("device_ms_per_step", "launches_per_step")}
+                     for k, v in stage_rows.items()},
+          "bucket_depth_land_mean_m": float(depth[land].mean()),
+          "t_range": t_range, "peak_memory_mb": peak_mb, "sw_flux_launches": sw_launches})
+    return {"moist_land": sw_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -744,11 +1094,14 @@ def phase_experiment(hs_model, dycore_ms, fr_model, fr_ms):
             hs = _experiment_hs(hs_model, dycore_ms, tmp, timings)
             col = _experiment_column(tmp, timings)
             fr = _experiment_frierson(fr_model, fr_ms, tmp, timings)
+            baro = _experiment_barotropic(tmp, timings)
     finally:
         for (owner, name), fn in patched.items():
             setattr(owner, name, fn)
-    emit({"phase": "experiment", "held_suarez": hs, "column": col, "frierson": fr})
-    return {"experiment_hs": hs["sw_flux_launches"], "experiment_column": col["sw_flux_launches"]}
+    emit({"phase": "experiment", "held_suarez": hs, "column": col, "frierson": fr,
+          "barotropic": baro})
+    return {"experiment_hs": hs["sw_flux_launches"], "experiment_column": col["sw_flux_launches"],
+            "experiment_barotropic": baro["sw_flux_launches"]}
 
 
 def _experiment_hs(model, dycore_ms, tmp, timings):
@@ -936,6 +1289,62 @@ def _experiment_frierson(model, moist_ms, tmp, timings):
                 os.path.join(exp.datadir, "restarts", "res0001.npz")) / 1e6}
 
 
+BARO_EXP_FIELDS = ("ucomp", "vcomp", "vor")     # the CLI's barotropic fields
+
+
+def _experiment_barotropic(tmp, timings):
+    """The stirred barotropic model of `simple` in two chained one-day
+    segments, held to the bit (the stirring key too) against one direct
+    two-day run: the key survives the restart."""
+    import os
+
+    from isca_tpu_torch.experiment import Experiment
+    from isca_tpu_torch.io.diag_manager import DiagTable
+    from isca_tpu_torch.physics import rrtmg_sw
+
+    model = simple_model("barotropic", torch.float32)
+    table = DiagTable().add_file("atmos_daily", 86400)
+    for f in BARO_EXP_FIELDS:
+        table.add_field("atmos_daily", "dynamics", f, time_avg=True)
+    exp = Experiment("barotropic_T85", model, table, datadir=tmp)
+    steps = SIMPLE_STEPS_PER_DAY
+    torch.cuda.synchronize()
+    rrtmg_sw.sw_flux_solve.launches = 0
+    walls = []
+    for i in (1, 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chained = exp.run(i, days=1)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    direct = model.run(model.initial_state(), 2 * steps)
+    torch.cuda.synchronize()
+    launches = rrtmg_sw.sw_flux_solve.launches
+    differ = _states_equal(chained, direct)
+    key0 = model.initial_state().rng
+    if differ or torch.equal(chained.rng, key0):
+        raise RuntimeError(f"experiment: the barotropic chained segments differ from the "
+                           f"direct run in {differ}, or the key never advanced")
+    grid = tuple(model.T.grid_shape)
+    for i in (1, 2):
+        nc = _read_nc(os.path.join(exp.datadir, f"run{i:04d}", "atmos_daily.nc"))
+        for f in BARO_EXP_FIELDS:
+            if nc[f].shape != (1,) + grid or not np.isfinite(nc[f]).all():
+                raise RuntimeError(f"experiment: barotropic run {i} {f} has shape "
+                                   f"{nc[f].shape}, want {(1,) + grid}, or is not finite")
+    restart_s = timings.seconds["restart"][-2:]
+    return {"resolution": model.config.resolution, "grid": list(grid), "segments": 2,
+            "days_per_segment": 1, "steps_per_segment": steps,
+            "chained_equals_direct": True, "key": chained.rng.cpu().tolist(),
+            "segment_ms_per_step": [1e3 * w / steps for w in walls],
+            "segment_ms_per_step_without_restart": [
+                1e3 * (w - r) / steps for w, r in zip(walls, restart_s)],
+            "flush_s": timings.seconds["flush"][-2:], "restart_write_s": restart_s,
+            "restart_mb": os.path.getsize(
+                os.path.join(exp.datadir, "restarts", "res0001.npz")) / 1e6,
+            "sw_flux_launches": launches}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -957,6 +1366,7 @@ def main():
     fr_model, fr_state, fr_ms = phase_moist()
     phase_moist_profile(fr_model, fr_state, fr_ms)
     rrtm_launches = phase_moist_rrtm()
+    new_paths = {**phase_simple(), **phase_giant(), **phase_moist_land()}
     exp_launches = phase_experiment(hs_model, hs_ms, fr_model, fr_ms)
     main_case = cases[0]                      # the main path's shape and variant
     emit({"kernels": [{
@@ -965,7 +1375,7 @@ def main():
         "replaces": "isca_tpu/physics/rrtmg_sw.py:782",
         "launches": launches["sw_flux"],
         "launches_by_path": {"slice": launches["sw_flux"], "moist_rrtm": rrtm_launches,
-                             **exp_launches},
+                             **new_paths, **exp_launches},
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],

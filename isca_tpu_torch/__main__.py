@@ -4,9 +4,7 @@ Port of isca_tpu/__main__.py, which replaces the reference's
 `exp/run_isca/isca` CLI (argparse wrapper around Experiment): pick a model
 variant, resolution and run length, chain monthly segments with restarts,
 and write NetCDF diagnostics per run. It runs on the card unless given
-`--device cpu`. Of the six model names, `held_suarez`, `frierson` and
-`column` are ported; the others raise NotImplementedError naming the
-ROADMAP item that ports them.
+`--device cpu`.
 """
 
 from __future__ import annotations
@@ -17,9 +15,9 @@ import sys
 
 MODELS = ("held_suarez", "frierson", "barotropic", "shallow", "giant",
           "column")
-
-# the ROADMAP item (queue A) that ports each model not ported yet
-UNPORTED = {"giant": "A.5", "barotropic": "A.4", "shallow": "A.4"}
+# the averaged output fields of the models without temp and ps
+FIELDS = {"barotropic": ("ucomp", "vcomp", "vor"),
+          "shallow": ("ucomp", "vcomp", "vor", "h")}
 
 
 def build_model(args):
@@ -38,14 +36,23 @@ def build_model(args):
             cfg.core, resolution=args.resolution, num_levels=args.levels,
             dt=args.dt))
         return GreyMoistModel(cfg, device=args.device)
+    if args.model == "giant":
+        from isca_tpu_torch.models.giant import giant_planet_model
+        return giant_planet_model(resolution=args.resolution,
+                                  num_levels=args.levels, dt=args.dt,
+                                  device=args.device)
+    if args.model == "barotropic":
+        from isca_tpu_torch.models.barotropic import BarotropicConfig, BarotropicModel
+        return BarotropicModel(BarotropicConfig(resolution=args.resolution, dt=args.dt),
+                               device=args.device)
+    if args.model == "shallow":
+        from isca_tpu_torch.models.shallow import ShallowConfig, ShallowModel
+        return ShallowModel(ShallowConfig(resolution=args.resolution, dt=args.dt),
+                            device=args.device)
     if args.model == "column":
         from isca_tpu_torch.models.column import ColumnConfig, ColumnModel
         return ColumnModel(ColumnConfig(num_levels=args.levels, dt=args.dt),
                            device=args.device)
-    if args.model in UNPORTED:
-        raise NotImplementedError(
-            f"model {args.model!r} is not ported yet (ROADMAP A: item "
-            f"{UNPORTED[args.model]})")
     raise SystemExit(f"unknown model {args.model!r}")
 
 
@@ -79,7 +86,7 @@ def main(argv=None):
     freq = 86400 if args.daily else args.days * 86400
     fname = "atmos_daily" if args.daily else "atmos_monthly"
     dt_tab.add_file(fname, freq)
-    for field in ("ucomp", "vcomp", "temp", "ps"):
+    for field in FIELDS.get(args.model, ("ucomp", "vcomp", "temp", "ps")):
         dt_tab.add_field(fname, "dynamics", field, time_avg=True)
 
     exp = Experiment(args.name, model, dt_tab, datadir=args.datadir)

@@ -15,6 +15,10 @@ starts both packages from identical state.
   float32), `bucket_depth_prev` and `bucket_depth_curr` (lat, lon), `tke`
   (lat, lon, L+1) and `rad_cache_<field>` for each field of RadCache
   (`rad_cache_age` 0-d int32).
+* Barotropic and shallow-water models: `<name>_prev` and `<name>_curr` for
+  each two-level field (BAROTROPIC_TWO_LEVEL, SHALLOW_TWO_LEVEL: complex
+  spectral (m, n) or grid (lat, lon)), `s_stir` (complex (m, n)) and `rng`,
+  the uint32[2] stirring key.
 """
 
 from __future__ import annotations
@@ -25,8 +29,10 @@ import torch
 from isca_tpu_torch import resolve_device
 from isca_tpu_torch.dycore.primitive import PrimitiveState
 from isca_tpu_torch.dycore.time_integration import TwoLevel
+from isca_tpu_torch.models.barotropic import BarotropicState
 from isca_tpu_torch.models.column import ColumnState
 from isca_tpu_torch.models.moist import GreyMoistState
+from isca_tpu_torch.models.shallow import ShallowState
 from isca_tpu_torch.physics.moist_driver import RadCache
 
 PROGNOSTIC = ("t", "q", "u", "v")
@@ -127,3 +133,65 @@ def grey_moist_state_to_numpy(state: GreyMoistState) -> dict:
     for f in RadCache._fields:
         out[f"rad_cache_{f}"] = host(getattr(state.rad_cache, f))
     return out
+
+
+BAROTROPIC_SPECTRAL = ("vors", "trs")
+BAROTROPIC_TWO_LEVEL = BAROTROPIC_SPECTRAL + ("u", "v", "vorg")
+SHALLOW_SPECTRAL = ("vors", "divs", "hs", "trs")
+SHALLOW_TWO_LEVEL = ("vors", "divs", "hs", "u", "v", "vorg", "divg", "hg", "trs")
+
+
+def _simple_keys(two_level):
+    return tuple(f"{n}_{lvl}" for n in two_level for lvl in ("prev", "curr")) + (
+        "s_stir", "rng")
+
+
+BAROTROPIC_STATE_KEYS = _simple_keys(BAROTROPIC_TWO_LEVEL)
+SHALLOW_STATE_KEYS = _simple_keys(SHALLOW_TWO_LEVEL)
+
+
+def _simple_from_numpy(cls, two_level, spectral, d, dtype, device):
+    device = resolve_device(device)
+    missing = set(_simple_keys(two_level)) - set(d)
+    if missing:
+        raise KeyError(f"{cls.__name__} is missing {sorted(missing)}")
+    cdtype = torch.complex64 if dtype == torch.float32 else torch.complex128
+    as_t = lambda k, dt: torch.as_tensor(np.array(d[k])).to(device, dt)
+    two = {n: TwoLevel(*(as_t(f"{n}_{lvl}", cdtype if n in spectral else dtype)
+                         for lvl in ("prev", "curr"))) for n in two_level}
+    return cls(**two, s_stir=as_t("s_stir", cdtype),
+               rng=as_t("rng", torch.int64).to(torch.uint32))
+
+
+def _simple_to_numpy(state, two_level) -> dict:
+    host = lambda x: x.detach().cpu().numpy()
+    out = {}
+    for n in two_level:
+        pair = getattr(state, n)
+        out[f"{n}_prev"], out[f"{n}_curr"] = host(pair.prev), host(pair.curr)
+    out["s_stir"], out["rng"] = host(state.s_stir), host(state.rng)
+    return out
+
+
+def barotropic_state_from_numpy(d, dtype=torch.float32, device=None) -> BarotropicState:
+    """A BarotropicState on `device`: grid fields in `dtype`, spectral fields
+    and s_stir in its complex type, rng uint32."""
+    return _simple_from_numpy(BarotropicState, BAROTROPIC_TWO_LEVEL, BAROTROPIC_SPECTRAL,
+                              d, dtype, device)
+
+
+def barotropic_state_to_numpy(state: BarotropicState) -> dict:
+    """The state as a dict of numpy arrays (keys BAROTROPIC_STATE_KEYS)."""
+    return _simple_to_numpy(state, BAROTROPIC_TWO_LEVEL)
+
+
+def shallow_state_from_numpy(d, dtype=torch.float32, device=None) -> ShallowState:
+    """A ShallowState on `device`: grid fields in `dtype`, spectral fields and
+    s_stir in its complex type, rng uint32."""
+    return _simple_from_numpy(ShallowState, SHALLOW_TWO_LEVEL, SHALLOW_SPECTRAL,
+                              d, dtype, device)
+
+
+def shallow_state_to_numpy(state: ShallowState) -> dict:
+    """The state as a dict of numpy arrays (keys SHALLOW_STATE_KEYS)."""
+    return _simple_to_numpy(state, SHALLOW_TWO_LEVEL)

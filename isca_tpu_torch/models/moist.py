@@ -8,8 +8,9 @@ boundary layer, an optional upper Rayleigh sponge, and a slab ocean; specific
 humidity as a grid tracer (van Leer + PPM vertical), with the
 water-conservation fixer. A run is a Python loop of eager steps.
 
-Not ported (ROADMAP A.5): land (`set_land`) and bucket hydrology; the
-physics driver raises for its other unported schemes.
+Land (`set_land`: a land mask and surface height) and the Manabe bucket
+hydrology (`bucket=True`) are ported; the physics driver raises for its
+unported schemes.
 
 Matches exp/test_cases/frierson/frierson_test_case.py defaults.
 """
@@ -18,7 +19,9 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
@@ -31,7 +34,7 @@ from isca_tpu_torch.dycore.primitive import (
     PrimitiveState,
     TracerAttr,
 )
-from isca_tpu_torch.dycore.time_integration import TwoLevel
+from isca_tpu_torch.dycore.time_integration import TwoLevel, leapfrog
 from isca_tpu_torch.physics.mixed_layer import initial_t_surf
 from isca_tpu_torch.physics.moist_driver import (
     MoistPhysics,
@@ -66,7 +69,7 @@ class GreyMoistState:
     dyn: PrimitiveState
     t_surf: torch.Tensor
     time_seconds: torch.Tensor   # 0-d float32 model time (s) for seasonal insolation
-    bucket_depth: TwoLevel       # (lat, lon) water depth (m); bucket not ported
+    bucket_depth: TwoLevel       # (lat, lon) water depth (m); constant unless bucket
     tke: torch.Tensor            # (lat, lon, L+1) MY2.5 TKE (zeros; MY2.5 not ported)
     rad_cache: RadCache          # radiation of the last step (substepping not ported)
 
@@ -82,10 +85,46 @@ class GreyMoistModel:
         self.physics = MoistPhysics(config.physics, self.core.T.lats, self.core.T.lons)
         self.surf_geopotential = torch.zeros(self.core.T.grid_shape, dtype=config.core.dtype,
                                              device=self.device)
+        self.land_mask = None   # optional (lat, lon) float mask
 
     def set_land(self, land_mask, surf_geopotential=None, units="m"):
-        raise NotImplementedError(
-            "land (set_land) is not ported to isca_tpu_torch yet (ROADMAP A.5)")
+        """Attach a land mask (and optionally topography).
+
+        units='m' (default): `surf_geopotential` is surface HEIGHT in meters;
+        grav is applied internally. units='m2/s2': it is already a
+        geopotential (g*z) and is used as-is. Pass units explicitly when
+        feeding legacy g*z fields: the magnitude check below only catches
+        heights above 9500 m, so low-relief g*z (< ~970 m * g) would
+        otherwise be silently double-multiplied by gravity.
+
+        Raw gridded topography should be band-limited first
+        (utils.topography.band_limit_topography) as the reference does for
+        input topography. Arrays or tensors; they are moved to the model's
+        device and dtype."""
+        if units not in ("m", "m2/s2"):
+            raise ValueError(f"set_land units must be 'm' or 'm2/s2', got {units!r}")
+        as_t = lambda x: torch.as_tensor(
+            x if torch.is_tensor(x) else np.asarray(x, np.float64)).to(
+                device=self.device, dtype=self.config.core.dtype)
+        self.land_mask = as_t(land_mask)
+        self.physics.land_mask = self.land_mask
+        if surf_geopotential is not None:
+            topo = as_t(surf_geopotential)
+            grav = self.core.C.grav
+            if units == "m":
+                zmax = float(topo.max())
+                if zmax > 9500.0:
+                    warnings.warn(
+                        f"set_land: max surface height {zmax:.0f} m exceeds "
+                        "any terrestrial value - set_land expects METERS by "
+                        "default and applies grav itself (pass units='m2/s2' "
+                        "for geopotential input)",
+                        RuntimeWarning, stacklevel=2)
+                self.surf_geopotential = topo * grav
+            else:
+                self.surf_geopotential = topo
+            # surface height for land_option='zsurf' heat capacity
+            self.physics.zsurf = self.surf_geopotential / grav
 
     # valid_range_t guard (spectral_dynamics.F90:940-1005)
     validity_name = "temperature"
@@ -109,8 +148,14 @@ class GreyMoistModel:
             t_surf = initial_t_surf(c.physics.mixed_layer, lat2d).to(dtype)
         else:
             t_surf = torch.full(T.grid_shape, c.t_surf_init, dtype=dtype, device=self.device)
-        depth0 = torch.full(T.grid_shape, c.physics.init_bucket_depth, dtype=dtype,
-                            device=self.device)
+        pc = c.physics
+        if pc.bucket and self.land_mask is not None:
+            full = lambda x: torch.full_like(self.land_mask, x, dtype=dtype)
+            depth0 = torch.where(self.land_mask > 0.5, full(pc.init_bucket_depth_land),
+                                 full(pc.init_bucket_depth))
+        else:
+            depth0 = torch.full(T.grid_shape, pc.init_bucket_depth, dtype=dtype,
+                                device=self.device)
         L = c.core.num_levels
         return GreyMoistState(
             dyn=dyn, t_surf=t_surf,
@@ -172,6 +217,18 @@ class GreyMoistModel:
                 rad_cache=state.rad_cache,
             )
 
+        # bucket-depth leapfrog (idealized_moist_phys.F90:1343-1372)
+        pc = c.physics
+        bucket = state.bucket_depth
+        if pc.bucket:
+            bd = leapfrog(bucket, phys.diagnostics["dt_bucket"] / delta_t, delta_t,
+                          pc.robert_bucket, pc.raw_bucket)
+            curr = torch.clamp_min(bd.curr, 0.0)
+            if self.land_mask is not None:
+                curr = torch.where(self.land_mask > 0.5,
+                                   torch.clamp_max(curr, pc.max_bucket_depth_land), curr)
+            bucket = TwoLevel(torch.clamp_min(bd.prev, 0.0), curr)
+
         tend = GridTendencies(du=lf(phys.dt_u), dv=lf(phys.dt_v), dt=lf(phys.dt_t),
                               dtracers={"sphum": lf(phys.dt_q)})
         with record_function("dynamics"):
@@ -179,7 +236,7 @@ class GreyMoistModel:
         new_state = GreyMoistState(
             dyn=dyn_new, t_surf=phys.t_surf,
             time_seconds=state.time_seconds + c.core.dt,
-            bucket_depth=state.bucket_depth,
+            bucket_depth=bucket,
             tke=phys.diagnostics.get("tke", state.tke),
             rad_cache=phys.rad_cache,
         )

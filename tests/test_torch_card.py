@@ -3,7 +3,8 @@ PyTorch version, the wrapper's input checks, the column model's use of the
 kernel, the Held-Suarez model and its extended diagnostics on the card
 against the CPU, the run harness (Experiment, restarts) on the card, and the
 grey-moist Frierson GCM (T42L25 against the CPU, its RRTM variant's use of
-the kernel, its restarts).
+the kernel, its restarts, a CO2 series built on the card), the stirring's threefry draws (bit for bit
+against the CPU) and a stirred barotropic step.
 Every test here needs a CUDA device and skips without one.
 
 This file imports torch, numpy and isca_tpu_torch only, so it runs where JAX
@@ -275,3 +276,66 @@ def test_frierson_restart_round_trip_on_card(tmp_path):
     assert back.time_seconds.dtype == torch.float32 and back.rad_cache.age.dtype == torch.int32
     assert_states_equal(back, state)
     assert_states_equal(model.step(back), model.step(state))
+
+
+def test_frierson_co2_series_on_card_matches_cpu():
+    """A CO2 series built with the loader's default device lies on the card
+    beside the model; 3 Byrne-radiation steps with it on the card agree with
+    the CPU by the 3x float32-versus-float64 rule."""
+    from isca_tpu_torch.physics.two_stream_gray import TwoStreamConfig
+    from isca_tpu_torch.utils.time_interp import monthly_climatology
+
+    co2 = np.linspace(300.0, 600.0, 12)
+
+    def fields(dtype, device):
+        model = frierson(dtype, device, small=True,
+                         radiation=TwoStreamConfig(rad_scheme="byrne"))
+        series = monthly_climatology(co2, dtype=dtype, device=device)
+        assert series.times.device == model.core.T.lats.device
+        model.physics.co2_series = series
+        state = model.run(model.initial_state(), 3)
+        return {k: v.cpu().numpy().astype(np.float64)
+                for k, v in model.diag_fields(state).items() if k in FRIERSON_FIELDS}
+
+    gpu, cpu32, cpu64 = (fields(torch.float32, None), fields(torch.float32, "cpu"),
+                         fields(torch.float64, "cpu"))
+    for k in FRIERSON_FIELDS:
+        gap = np.abs(cpu32[k] - cpu64[k]).max()
+        assert np.abs(gpu[k] - cpu32[k]).max() <= 3.0 * gap, k
+
+
+@pytest.mark.parametrize("seed", [0, 2**31 + 11])
+def test_threefry_on_card_equals_cpu(seed):
+    """The stirring's key chain and draws on the card are the CPU's, bit for
+    bit, at float32 and float64 on T85's spectral shape."""
+    from isca_tpu_torch.utils import threefry
+
+    kg, kc = threefry.prng_key(seed, "cuda"), threefry.prng_key(seed, "cpu")
+    assert kg.dtype == torch.uint32 and kg.device.type == "cuda"
+    for _ in range(10):
+        pg, pc = threefry.split(kg), threefry.split(kc)
+        assert torch.equal(pg.cpu(), pc)
+        for dtype, bits in ((torch.float32, torch.int32), (torch.float64, torch.int64)):
+            a = threefry.uniform(pg[1], (86, 87, 2), dtype, -1.0, 1.0)
+            assert a.device.type == "cuda"
+            b = threefry.uniform(pc[1], (86, 87, 2), dtype, -1.0, 1.0)
+            assert torch.equal(a.cpu().view(bits), b.view(bits))
+        kg, kc = pg[0], pc[0]
+
+
+def test_barotropic_step_on_card():
+    """One stirred barotropic step at T85 on the card: finite, the key
+    advanced as on the CPU, the stirring state nonzero."""
+    from isca_tpu_torch.models.barotropic import BarotropicConfig, BarotropicModel
+
+    cfg = BarotropicConfig(resolution="T85", dt=1200.0, initial_zonal_wind="zero",
+                           stirring_amplitude=3.0e-11, damping_order=2,
+                           damping_coeff_r=1.929e-6)
+    gpu = BarotropicModel(cfg)
+    state = gpu.step(gpu.initial_state(), first=True)
+    cpu = BarotropicModel(cfg, device="cpu")
+    ref = cpu.step(cpu.initial_state(), first=True)
+    assert state.vors.curr.device.type == "cuda" and state.rng.dtype == torch.uint32
+    assert torch.equal(state.rng.cpu(), ref.rng)
+    assert bool(torch.isfinite(state.vorg.curr).all())
+    assert float(state.s_stir.abs().max()) > 0.0

@@ -271,12 +271,14 @@ def test_rrtm_radiation_matches(kw):
 
 def test_unported_options_raise():
     lats, lons = torch.zeros(2, dtype=torch.float64), torch.zeros(3, dtype=torch.float64)
+    # dry convection, the giant-planet surface and the bucket are ported
+    # (tests/test_torch_giant.py, tests/test_torch_land.py)
     for kw in (dict(convection_scheme="RAS"), dict(convection_scheme="FULL_BETTS_MILLER"),
-               dict(convection_scheme="DRY"), dict(gp_surface=True),
+               dict(bl_scheme="mellor_yamada"), dict(bl_scheme="stable_bl"),
                # the damping driver is ported but for its gravity-wave drags
                dict(do_damping=True, damping=tdd.DampingDriverConfig(do_mg_drag=True)),
                dict(do_damping=True, damping=tdd.DampingDriverConfig(do_cg_drag=True)),
-               dict(bucket=True), dict(do_cloud_simple=True), dict(bl_scheme="edt"),
+               dict(do_cloud_spookie=True), dict(do_cloud_simple=True), dict(bl_scheme="edt"),
                dict(radiation_scheme="socrates"), dict(do_shallow_conv=True)):
         with pytest.raises(NotImplementedError):
             tmd.MoistPhysics(tmd.MoistPhysicsConfig(**kw), lats, lons)
