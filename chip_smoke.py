@@ -63,6 +63,21 @@ Phases, each printed as one JSON line:
            "physics" and "dynamics" ranges); then runs the same GCM with
            RRTM radiation (RRTMG-SW + grey LW) for a few steps, in which
            sw_flux must launch exactly once per step.
+  mima     drives exp/test_cases/mima_test_case.py as written through
+           GreyMoistModel.run: GreyMoistConfig() at T42L25, dt = 720 s, with
+           RRTMG-SW and RRTMG-LW (RRTMConfig's "auto"), seasonal sun, ozone
+           1e-6 and full Betts-Miller, float32, "highest"; nothing cut.
+           3 steps against the CPU (olr and t_surf among the fields) by the
+           3x rule; 6 warm-up steps and three timed 20-step runs, ms per
+           step, their median and mima_T42L25_model_days_per_day; sw_flux
+           exactly once per step; peak memory; 2 profiled steps (launches,
+           device ms in the "physics", "dynamics" and "rrtmg_lw" ranges,
+           idle share).
+  mima_dt_rad
+           the same model with MiMA's dt_rad = 7200 s (n_rad = 10): sw_flux
+           at steps 1 and 11 of 20 from cold start and twice in each of
+           three timed 20-step runs; ms per step, its median and
+           mima_dt_rad7200_T42L25_model_days_per_day; 10 profiled steps.
   simple   drives the stirred barotropic model
            (barotropic_vorticity_equation_test_case.py) and the shallow-water
            model (shallow_water_test_case.py) at T85 (128 x 256), dt = 1200 s,
@@ -86,7 +101,8 @@ Phases, each printed as one JSON line:
            float32: 3 steps against the CPU (bucket_depth among the fields),
            timed runs, launches per step, idle share; the land's bucket must
            stay within [0, max_bucket_depth_land].
-These three run after `moist_rrtm`; sw_flux must not launch on their paths
+The two mima phases run after `moist_rrtm`, then simple, giant and
+moist_land; sw_flux must not launch on these last three's paths
 (its count on each is printed). `experiment` also runs the stirred
 barotropic model in two chained one-day segments, held to the bit (the
 stirring key too) against one direct two-day run.
@@ -427,7 +443,8 @@ HS_TOL_FACTOR = 3.0
 HS_STAGES = ("dft", "legendre", "implicit")
 MOIST_STAGES = ("physics", "dynamics")
 STIR_STAGES = ("stirring", "threefry")
-ALL_STAGES = HS_STAGES + MOIST_STAGES + STIR_STAGES
+MIMA_STAGES = MOIST_STAGES + ("rrtmg_lw",)
+ALL_STAGES = HS_STAGES + MIMA_STAGES + STIR_STAGES
 
 
 def hs_config(dtype):
@@ -702,6 +719,149 @@ def phase_moist_rrtm():
           "columns": list(model.core.T.grid_shape), "levels": model.config.core.num_levels,
           "ms_per_step": 1e3 * seconds / FR_RRTM_STEPS, "finite": finite,
           "swdn_sfc_max": float(diag["swdn_sfc"].max())})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# mima: exp/test_cases/mima_test_case.py at T42L25, and with MiMA's dt_rad
+# ---------------------------------------------------------------------------
+
+MIMA_FIELDS = FR_FIELDS + ("olr",)
+MIMA_DT_RAD = 7200.0          # exp/namelists/mima.nml:87
+MIMA_DT_RAD_STEPS, MIMA_DT_RAD_PROFILE_STEPS = 20, 10
+
+
+def mima_config(dtype, dt_rad=0.0):
+    """mima_test_case.py as written (GreyMoistConfig(): T42, 25 uneven-sigma
+    levels, dt = 720 s; RRTMG-SW + RRTMG-LW, seasonal sun, o3 1e-6; full
+    Betts-Miller) with exact transforms; dt_rad > dt substeps radiation."""
+    from isca_tpu_torch.models.moist import mima_test_case_config
+
+    cfg = mima_test_case_config(dtype=dtype, transform_precision="highest")
+    if dt_rad:
+        cfg = dataclasses.replace(cfg, physics=dataclasses.replace(cfg.physics, dt_rad=dt_rad))
+    return cfg
+
+
+def _mima_compare_run(model):
+    """FR_COMPARE_STEPS steps from cold start: (fields with the last step's
+    OLR, convecting columns, state)."""
+    state = model.run(model.initial_state(), FR_COMPARE_STEPS - 1)
+    state, diag = model.step_with_diagnostics(state)
+    fields = moist_fields(model, state)
+    fields["olr"] = diag["olr"].cpu().numpy().astype(np.float64)
+    return fields, diag["convection_rain"].cpu().numpy() > 0.0, state
+
+
+def phase_mima():
+    """The MiMA test case on the card: 3 steps against the CPU, timed runs
+    with sw_flux once per step, a profile. Returns the path's launches."""
+    from isca_tpu_torch.models.moist import GreyMoistModel
+    from isca_tpu_torch.physics import rrtmg_sw
+
+    t_phase = time.perf_counter()
+    cpu = {}
+    for name, dtype in (("float32", torch.float32), ("float64", torch.float64)):
+        cpu[name] = _mima_compare_run(GreyMoistModel(mima_config(dtype), device="cpu"))
+    model = GreyMoistModel(mima_config(torch.float32))
+    if model.physics.radiation.lw_rrtmg is None:
+        raise RuntimeError("mima: RRTMConfig() did not select RRTMG-LW")
+    T = model.core.T
+    torch.cuda.synchronize()
+    rrtmg_sw.sw_flux_solve.launches = 0
+    gpu, gpu_conv, state = _mima_compare_run(model)
+    compare, ok = gap_compare(gpu, cpu["float32"][0], cpu["float64"][0], FR_TOL_FACTOR,
+                              MIMA_FIELDS)
+    flips = {"card_vs_cpu_f32": int((gpu_conv != cpu["float32"][1]).sum()),
+             "cpu_f32_vs_f64": int((cpu["float32"][1] != cpu["float64"][1]).sum()),
+             "convecting_columns_cpu_f64": int(cpu["float64"][1].sum())}
+    if not ok:
+        raise RuntimeError(f"mima: card and CPU runs disagree after {FR_COMPARE_STEPS} "
+                           f"steps: {compare}; convection flips {flips}")
+    state, warmup_s, runs = _timed_runs(model, state, FR_WARMUP_STEPS, FR_TIMED_STEPS,
+                                        FR_TIMED_RUNS)
+    torch.cuda.synchronize()
+    launches = rrtmg_sw.sw_flux_solve.launches
+    steps = FR_COMPARE_STEPS + FR_WARMUP_STEPS + FR_TIMED_RUNS * FR_TIMED_STEPS
+    if launches != steps:
+        raise RuntimeError(f"mima: sw_flux launched {launches} times in {steps} steps, "
+                           "expected one per step")
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    ms_per_step = statistics.median(runs)
+    t_range = _gcm_valid("mima", model, state)
+    kernels, device_ms, stage_rows, _ = profile_stages(model, state, MIMA_STAGES)
+    core = model.config.core
+    emit({"phase": "mima", "model": "mima_test_case", "resolution": core.resolution,
+          "grid": [T.nlat, T.nlon], "spectral": list(T.spec_shape),
+          "levels": core.num_levels, "dt": core.dt, "dtype": str(core.dtype),
+          "transform_precision": core.transform_precision,
+          "width": "full: mima_test_case.py's T42L25 as written; nothing cut",
+          "compare_steps": FR_COMPARE_STEPS, "tolerance_factor": FR_TOL_FACTOR,
+          "compare": compare, "convection_flips": flips,
+          "warmup_steps": FR_WARMUP_STEPS, "warmup_s": warmup_s,
+          "timed_runs": FR_TIMED_RUNS, "steps_per_run": FR_TIMED_STEPS,
+          "ms_per_step_runs": runs, "ms_per_step_median": ms_per_step,
+          "metric": "mima_T42L25_model_days_per_day",
+          "value": core.dt / (ms_per_step * 1e-3), "unit": "model-days/day (one GPU)",
+          "sw_flux_launches": launches, "steps": steps, "t_range": t_range,
+          "peak_memory_mb": peak_mb, "profile_steps": 2,
+          "device_ms_per_step": device_ms,
+          "launches_per_step": sum(e.count for e in kernels) / 2,
+          "idle_share": 1.0 - device_ms / ms_per_step,
+          "stages": stage_rows, "phase_seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+def phase_mima_dt_rad():
+    """The MiMA test case with dt_rad = 7200 s (n_rad = 10): sw_flux at steps
+    1 and 11 of 20 from cold start, then timed runs. Returns the path's
+    launches."""
+    from isca_tpu_torch.models.moist import GreyMoistModel
+    from isca_tpu_torch.physics import rrtmg_sw
+
+    t_phase = time.perf_counter()
+    model = GreyMoistModel(mima_config(torch.float32, MIMA_DT_RAD))
+    dt = model.config.core.dt
+    state = model.initial_state()
+    torch.cuda.synchronize()
+    rrtmg_sw.sw_flux_solve.launches = 0
+    at = []
+    t0 = time.perf_counter()
+    for i in range(MIMA_DT_RAD_STEPS):
+        before = rrtmg_sw.sw_flux_solve.launches
+        state = model.step(state, first=i == 0)
+        at.extend([i + 1] * (rrtmg_sw.sw_flux_solve.launches - before))
+    torch.cuda.synchronize()
+    cold_ms = 1e3 * (time.perf_counter() - t0) / MIMA_DT_RAD_STEPS
+    if at != [1, 11]:
+        raise RuntimeError(f"mima_dt_rad: sw_flux launched at steps {at} of "
+                           f"{MIMA_DT_RAD_STEPS}, expected [1, 11]")
+    state, _, runs = _timed_runs(model, state, 0, MIMA_DT_RAD_STEPS, FR_TIMED_RUNS)
+    torch.cuda.synchronize()
+    launches = rrtmg_sw.sw_flux_solve.launches
+    want = 2 * (1 + FR_TIMED_RUNS)
+    if launches != want:
+        raise RuntimeError(f"mima_dt_rad: sw_flux launched {launches} times in "
+                           f"{(1 + FR_TIMED_RUNS) * MIMA_DT_RAD_STEPS} steps, expected {want}")
+    ms_per_step = statistics.median(runs)
+    t_range = _gcm_valid("mima_dt_rad", model, state)
+    kernels, device_ms, stage_rows, _ = profile_stages(model, state, MIMA_STAGES,
+                                                       MIMA_DT_RAD_PROFILE_STEPS)
+    emit({"phase": "mima_dt_rad", "dt_rad": MIMA_DT_RAD,
+          "n_rad": int(round(MIMA_DT_RAD / dt)), "sw_flux_at_steps": at,
+          "cold_start_ms_per_step": cold_ms, "timed_runs": FR_TIMED_RUNS,
+          "steps_per_run": MIMA_DT_RAD_STEPS, "ms_per_step_runs": runs,
+          "ms_per_step_median": ms_per_step,
+          "metric": "mima_dt_rad7200_T42L25_model_days_per_day",
+          "value": dt / (ms_per_step * 1e-3), "unit": "model-days/day (one GPU)",
+          "sw_flux_launches": launches, "t_range": t_range,
+          "peak_memory_mb": torch.cuda.max_memory_allocated() / 2**20,
+          "profile_steps": MIMA_DT_RAD_PROFILE_STEPS, "device_ms_per_step": device_ms,
+          "launches_per_step": sum(e.count for e in kernels) / MIMA_DT_RAD_PROFILE_STEPS,
+          "idle_share": 1.0 - device_ms / ms_per_step,
+          "stages": {k: {f: v[f] for f in ("device_ms_per_step", "launches_per_step")}
+                     for k, v in stage_rows.items()},
+          "phase_seconds": time.perf_counter() - t_phase})
     return launches
 
 
@@ -1366,6 +1526,7 @@ def main():
     fr_model, fr_state, fr_ms = phase_moist()
     phase_moist_profile(fr_model, fr_state, fr_ms)
     rrtm_launches = phase_moist_rrtm()
+    mima_launches = {"mima": phase_mima(), "mima_dt_rad": phase_mima_dt_rad()}
     new_paths = {**phase_simple(), **phase_giant(), **phase_moist_land()}
     exp_launches = phase_experiment(hs_model, hs_ms, fr_model, fr_ms)
     main_case = cases[0]                      # the main path's shape and variant
@@ -1375,6 +1536,7 @@ def main():
         "replaces": "isca_tpu/physics/rrtmg_sw.py:782",
         "launches": launches["sw_flux"],
         "launches_by_path": {"slice": launches["sw_flux"], "moist_rrtm": rrtm_launches,
+                             **mima_launches,
                              **new_paths, **exp_launches},
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],

@@ -33,7 +33,7 @@ from isca_tpu_torch.models.barotropic import BarotropicState
 from isca_tpu_torch.models.column import ColumnState
 from isca_tpu_torch.models.moist import GreyMoistState
 from isca_tpu_torch.models.shallow import ShallowState
-from isca_tpu_torch.physics.moist_driver import RadCache
+from isca_tpu_torch.physics.moist_driver import RadCache, rad_age
 
 PROGNOSTIC = ("t", "q", "u", "v")
 STATE_KEYS = tuple(f"{n}_{lvl}" for n in PROGNOSTIC for lvl in ("prev", "curr")) + (
@@ -105,7 +105,8 @@ GREY_MOIST_STATE_KEYS = PRIMITIVE_STATE_KEYS + (
 
 def grey_moist_state_from_numpy(d, dtype=torch.float32, device=None) -> GreyMoistState:
     """A GreyMoistState on `device`: real fields in `dtype`, spectral fields
-    in its complex type, time_seconds float32 and rad_cache_age int32."""
+    in its complex type, time_seconds float32 and rad_cache_age int32 on the
+    host."""
     device = resolve_device(device)
     missing = set(GREY_MOIST_STATE_KEYS) - set(d)
     if missing:
@@ -114,8 +115,8 @@ def grey_moist_state_from_numpy(d, dtype=torch.float32, device=None) -> GreyMois
     as_t = lambda k, dt=dtype: torch.as_tensor(np.array(d[k])).to(device, dt)
     two = lambda n: TwoLevel(as_t(f"{n}_prev"), as_t(f"{n}_curr"))
     dyn.tracers["sphum"] = two("sphum")
-    rad = RadCache(**{f: as_t(f"rad_cache_{f}", torch.int32 if f == "age" else dtype)
-                      for f in RadCache._fields})
+    rad = RadCache(**{f: as_t(f"rad_cache_{f}") for f in RadCache._fields if f != "age"},
+                   age=rad_age(int(d["rad_cache_age"])))
     return GreyMoistState(
         dyn=dyn, t_surf=as_t("t_surf"), time_seconds=as_t("time_seconds", torch.float32),
         bucket_depth=two("bucket_depth"), tke=as_t("tke"), rad_cache=rad)

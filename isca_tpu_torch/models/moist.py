@@ -2,8 +2,9 @@
 
 Port of isca_tpu/models/moist.py. Reference composition: GreyCodeBase
 (`grey_isca.x`) - the primitive-equation spectral core + idealized_moist_phys
-with two-stream grey radiation (or RRTMG-SW + grey LW), simple Betts-Miller
-convection, large-scale condensation, Monin-Obukhov surface fluxes, K-profile
+with two-stream grey radiation (or RRTM: RRTMG-SW with RRTMG-LW or grey LW,
+optionally every `dt_rad` seconds), simple or full Betts-Miller convection,
+large-scale condensation, Monin-Obukhov surface fluxes, K-profile
 boundary layer, an optional upper Rayleigh sponge, and a slab ocean; specific
 humidity as a grid tracer (van Leer + PPM vertical), with the
 water-conservation fixer. A run is a Python loop of eager steps.
@@ -71,7 +72,7 @@ class GreyMoistState:
     time_seconds: torch.Tensor   # 0-d float32 model time (s) for seasonal insolation
     bucket_depth: TwoLevel       # (lat, lon) water depth (m); constant unless bucket
     tke: torch.Tensor            # (lat, lon, L+1) MY2.5 TKE (zeros; MY2.5 not ported)
-    rad_cache: RadCache          # radiation of the last step (substepping not ported)
+    rad_cache: RadCache          # stored radiation for dt_rad substepping (age on the host)
 
 
 class GreyMoistModel:
@@ -355,3 +356,20 @@ def frierson_test_case_config(**core_overrides) -> GreyMoistConfig:
         gust_const=0.0,
     )
     return GreyMoistConfig(core=core, physics=phys)
+
+
+def mima_test_case_config(**core_overrides) -> GreyMoistConfig:
+    """The reference's mima_test_case.py configuration (Jucker & Gerber 2017's
+    MiMA, exp/test_cases/mima_test_case.py): GreyMoistConfig() with RRTM
+    radiation (RRTMG-SW and RRTMG-LW through RRTMConfig's "auto", seasonal
+    sun, constant ozone 1e-6) and full Betts-Miller convection. The test case
+    sets no dt_rad: radiation runs every step."""
+    from isca_tpu_torch.physics.rrtm_radiation import RRTMConfig
+
+    cfg = GreyMoistConfig()
+    return dataclasses.replace(
+        cfg, core=dataclasses.replace(cfg.core, **core_overrides),
+        physics=dataclasses.replace(
+            cfg.physics, radiation_scheme="rrtm",
+            rrtm=RRTMConfig(do_seasonal=True, o3_mmr=1.0e-6),
+            convection_scheme="FULL_BETTS_MILLER"))

@@ -8,8 +8,9 @@ radiation up-sweep -> boundary-layer diffusivities -> vertical-diffusion
 down-sweep -> mixed-layer implicit surface energy balance -> vertical-diffusion
 up-sweep.
 
-Ported: simple Betts-Miller, dry or no convection, large-scale condensation,
-grey two-stream or RRTM (RRTMG-SW + grey LW) radiation every step, bulk
+Ported: simple and full Betts-Miller, dry or no convection, large-scale
+condensation, grey two-stream or RRTM (RRTMG-SW with RRTMG-LW or grey LW)
+radiation, every step or every `dt_rad` seconds (substepping), bulk
 surface fluxes over ocean and land (with the Manabe bucket's evaporation
 limit, `bucket=True`, whose depth the GCM leapfrogs from `dt_bucket`), the
 giant-planet lower boundary (interior heat flux and Rayleigh bottom drag,
@@ -18,12 +19,11 @@ constant drag), the K-profile diffusivity, vertical diffusion and the slab
 mixed layer with its land options. A land mask and surface height are
 attached by the model (`land_mask`, `zsurf`), and a CO2 series by the user
 (`co2_series`). Every other scheme and option raises NotImplementedError
-when the driver is built: RAS and full Betts-Miller, SOCRATES, clouds, the
-gravity-wave drags, the other boundary-layer schemes, shallow convection;
-radiation substepping (dt_rad > dt) and the SST, sea-ice, q-flux and ozone
-series raise when the driver is called. The keyword inputs of those
-options (`wg_full`, `tke`, `rad_cache`) are accepted so that the GCM calls
-both packages' drivers alike.
+when the driver is built: RAS, SOCRATES, clouds, the gravity-wave drags,
+the other boundary-layer schemes, shallow convection; the SST, sea-ice,
+q-flux and ozone series raise when the driver is called. The keyword
+inputs of those options (`wg_full`, `tke`) are accepted so that the GCM
+calls both packages' drivers alike.
 
 Prognostic fields are taken at the `previous` time level, pressures/heights
 at `current`. The mixed layer advances with dt_real (not the leapfrog 2*dt).
@@ -39,6 +39,7 @@ from typing import NamedTuple
 import torch
 
 from isca_tpu_torch.constants import Constants, EARTH
+from isca_tpu_torch.physics.betts_miller import BettsMiller, BettsMillerConfig
 from isca_tpu_torch.physics.damping_driver import (
     DampingDriverConfig,
     check_ported as check_damping_ported,
@@ -72,7 +73,7 @@ from isca_tpu_torch.physics.vert_diff import gcm_vert_diff_down, gcm_vert_diff_u
 
 @dataclasses.dataclass(frozen=True)
 class MoistPhysicsConfig:
-    convection_scheme: str = "SIMPLE_BETTS_MILLER"   # | NONE | DRY (others not ported)
+    convection_scheme: str = "SIMPLE_BETTS_MILLER"   # | FULL_BETTS_MILLER | NONE | DRY
     turb: bool = True
     do_damping: bool = False
     mixed_layer_bc: bool = True
@@ -84,7 +85,7 @@ class MoistPhysicsConfig:
     max_bucket_depth_land: float = 0.15
     robert_bucket: float = 0.04
     raw_bucket: float = 0.53
-    radiation_scheme: str = "two_stream"   # | "rrtm" (RRTMG-SW + grey LW)
+    radiation_scheme: str = "two_stream"   # | "rrtm" (RRTMG-SW + RRTMG-LW or grey LW)
     do_cloud_simple: bool = False
     do_cloud_spookie: bool = False
     do_simple_sat: bool = True          # sat_vapor_pres do_simple (Frierson)
@@ -94,7 +95,9 @@ class MoistPhysicsConfig:
     land_roughness_prefactor: float = 1.0
     gust_const: float = 1.0
     do_conserve_energy_diff: bool = True
-    # radiation timestep [s]; <= dt means every step (the only ported case)
+    # radiation timestep [s]; <= dt means every step (rrtm_radiation_nml
+    # dt_rad). When larger, heating rates and surface radiative fluxes are
+    # stored and reused between radiation calls.
     dt_rad: float = 0.0
     convection: QEMoistConvectionConfig = QEMoistConvectionConfig()
     condensation: LscaleCondConfig = LscaleCondConfig(do_simple=False, do_evap=False)
@@ -105,6 +108,7 @@ class MoistPhysicsConfig:
     do_shallow_conv: bool = False
     mixed_layer: MixedLayerConfig = MixedLayerConfig()
     dry_convection: DryConvectionConfig = DryConvectionConfig()
+    betts_miller: BettsMillerConfig = BettsMillerConfig()
     damping: DampingDriverConfig = DampingDriverConfig()
     giant: GiantPlanetConfig = GiantPlanetConfig()
     rrtm: "RRTMConfig | None" = None       # used when radiation_scheme="rrtm"
@@ -113,10 +117,13 @@ class MoistPhysicsConfig:
 
 class RadCache(NamedTuple):
     """Stored radiation results for dt_rad substepping (the reference
-    rrtm adapter's stored intermediate fluxes, rrtm_radiation.F90:150-205).
-    Substepping is not ported: every step computes radiation and returns a
-    fresh cache with age 1. The model state carries it, so that restarts
-    interchange with isca_tpu's."""
+    rrtm adapter's stored intermediate fluxes, rrtm_radiation.F90:150-205:
+    radiation is recomputed every `dt_rad` seconds and the heating rates and
+    surface fluxes reused in between).
+
+    `age` is a 0-d int32 tensor on the host, wherever the fields lie: the
+    driver decides from it whether to compute radiation, and so reads
+    nothing from the device. A restart stores it as isca_tpu's does."""
     tdt_rad: torch.Tensor          # (..., L)
     tdt_solar: torch.Tensor        # (..., L)
     olr: torch.Tensor              # (...)
@@ -124,15 +131,34 @@ class RadCache(NamedTuple):
     surf_lw_down: torch.Tensor
     coszen: torch.Tensor
     net_lw_surf: torch.Tensor
-    age: torch.Tensor              # int32 steps since last radiation call
+    age: torch.Tensor              # int32 steps since last radiation call (host)
+
+
+def rad_age(n) -> torch.Tensor:
+    """RadCache.age: a 0-d int32 tensor on the host."""
+    return torch.tensor(n, dtype=torch.int32)
 
 
 def zero_rad_cache(shape2d, L, dtype, device=None):
     z2 = torch.zeros(shape2d, dtype=dtype, device=device)
     z3 = torch.zeros(tuple(shape2d) + (L,), dtype=dtype, device=device)
     return RadCache(tdt_rad=z3, tdt_solar=z3, olr=z2, net_surf_sw_down=z2,
-                    surf_lw_down=z2, coszen=z2, net_lw_surf=z2,
-                    age=torch.zeros((), dtype=torch.int32, device=device))
+                    surf_lw_down=z2, coszen=z2, net_lw_surf=z2, age=rad_age(0))
+
+
+def rad_due(cfg, dt_real, rad_cache) -> bool:
+    """Whether this step computes radiation: every step unless dt_rad > dt,
+    then every n_rad = round(dt_rad / dt) steps, when the cache's age is a
+    multiple of n_rad (isca_tpu's `rad_cache.age % n_rad == 0`). A cold
+    start's age 0 computes; a computed step sets age 1, a reused one adds 1.
+    Reads the host's age only."""
+    if not (cfg.dt_rad > dt_real and rad_cache is not None):
+        return True
+    if rad_cache.age.device.type != "cpu":
+        raise ValueError("RadCache.age must lie on the host (rad_age), not on "
+                         f"{rad_cache.age.device}: the step would wait for the device")
+    n_rad = max(1, int(round(cfg.dt_rad / dt_real)))
+    return int(rad_cache.age) % n_rad == 0
 
 
 class MoistPhysicsResult(NamedTuple):
@@ -147,8 +173,8 @@ class MoistPhysicsResult(NamedTuple):
 
 def _check_ported(cfg: MoistPhysicsConfig):
     later = {
-        "convection_scheme": cfg.convection_scheme not in ("SIMPLE_BETTS_MILLER", "NONE",
-                                                           "DRY"),
+        "convection_scheme": cfg.convection_scheme not in (
+            "SIMPLE_BETTS_MILLER", "FULL_BETTS_MILLER", "NONE", "DRY"),
         "radiation_scheme": cfg.radiation_scheme.lower() not in ("two_stream", "rrtm"),
         "do_cloud_simple": cfg.do_cloud_simple,
         "do_cloud_spookie": cfg.do_cloud_spookie,
@@ -173,6 +199,7 @@ class MoistPhysics:
         self.C = config.constants
         self.svp = SatVaporPres(constants=self.C, do_simple=config.do_simple_sat)
         self.convection = QEMoistConvection(config.convection, self.svp)
+        self.betts_miller = BettsMiller(config.betts_miller, self.svp)
         self.condensation = LscaleCond(config.condensation, self.svp)
         if config.radiation_scheme.lower() == "rrtm":
             from isca_tpu_torch.physics.rrtm_radiation import RRTMConfig, RRTMRadiation
@@ -211,13 +238,9 @@ class MoistPhysics:
         time_seconds=0.0,       # model time (constant drag, CO2 series)
         wg_full=None,           # (..., L); feeds SimCloud (not ported)
         tke=None,               # (..., L+1); feeds MY2.5 (not ported)
-        rad_cache=None,         # RadCache; feeds dt_rad substepping (not ported)
+        rad_cache=None,         # RadCache for dt_rad substepping
     ) -> MoistPhysicsResult:
         cfg, C = self.config, self.C
-        if cfg.dt_rad > dt_real:
-            raise NotImplementedError(
-                "radiation substepping (dt_rad > dt) is not ported to "
-                "isca_tpu_torch yet")
         for name in ("sst_series", "ice_series", "qflux_series", "o3_series"):
             if getattr(self, name) is not None:
                 raise NotImplementedError(
@@ -239,8 +262,10 @@ class MoistPhysics:
 
         # ---- convection ----
         depth_change_conv = zero2
-        if cfg.convection_scheme == "SIMPLE_BETTS_MILLER":
-            conv = self.convection(delta_t, t_prev, q_prev, p_full_prev, p_half_prev)
+        if cfg.convection_scheme in ("SIMPLE_BETTS_MILLER", "FULL_BETTS_MILLER"):
+            scheme = (self.convection if cfg.convection_scheme == "SIMPLE_BETTS_MILLER"
+                      else self.betts_miller)
+            conv = scheme(delta_t, t_prev, q_prev, p_full_prev, p_half_prev)
             tg_tmp = t_prev + conv.deltaT
             qg_tmp = q_prev + conv.deltaq
             dt_t = dt_t + conv.deltaT / delta_t
@@ -277,16 +302,19 @@ class MoistPhysics:
         dt_rad_radians = dt_rad_avg / C.seconds_per_day * 2.0 * math.pi
         co2 = self.co2_series.at(time_seconds) if self.co2_series is not None else None
         rad_kw = {} if co2 is None else {"carbon_conc": co2}
-        rad_down = self.radiation.down(
-            self.lat2d, self.lon2d, p_half_curr, t_prev, q_prev, albedo,
-            gmt=gmt, time_since_ae=time_since_ae, dt_rad_avg=dt_rad_radians, **rad_kw)
-        rad_up = self.radiation.up(rad_down, p_half_curr, t_surf, albedo)
-        rad = RadCache(
-            tdt_rad=rad_up.tdt_rad, tdt_solar=rad_up.tdt_solar, olr=rad_up.olr,
-            net_surf_sw_down=rad_down.net_surf_sw_down,
-            surf_lw_down=rad_down.surf_lw_down, coszen=rad_down.coszen,
-            net_lw_surf=rad_up.net_lw_surf,
-            age=torch.ones((), dtype=torch.int32, device=t_prev.device))
+        if rad_due(cfg, dt_real, rad_cache):
+            rad_down = self.radiation.down(
+                self.lat2d, self.lon2d, p_half_curr, t_prev, q_prev, albedo,
+                gmt=gmt, time_since_ae=time_since_ae, dt_rad_avg=dt_rad_radians, **rad_kw)
+            rad_up = self.radiation.up(rad_down, p_half_curr, t_surf, albedo)
+            rad = RadCache(
+                tdt_rad=rad_up.tdt_rad, tdt_solar=rad_up.tdt_solar, olr=rad_up.olr,
+                net_surf_sw_down=rad_down.net_surf_sw_down,
+                surf_lw_down=rad_down.surf_lw_down, coszen=rad_down.coszen,
+                net_lw_surf=rad_up.net_lw_surf, age=rad_age(1))
+        else:
+            # dt_rad substepping: reuse the stored heating and fluxes
+            rad = rad_cache._replace(age=rad_cache.age + 1)
 
         # ---- surface fluxes (lowest level, previous); none on a giant planet ----
         z_surf = z_half_curr[..., -1]

@@ -1,13 +1,13 @@
-"""RRTM radiation adapter: RRTMG-SW with the grey two-stream LW.
+"""RRTM radiation adapter: RRTMG-SW with RRTMG-LW or the grey two-stream LW.
 
 Port of isca_tpu/physics/rrtm_radiation.py (reference:
 src/atmos_param/rrtm_radiation/rrtm_radiation.F90, the adapter that reshapes
 model fields to RRTMG columns, manages ozone/CO2 inputs, the radiation-grid
-cost controls and coszen averaging) with its grey-LW branch: RRTMG-SW
-(`physics/rrtmg_sw.py`) paired with the Frierson/Byrne/Geen grey two-stream
-LW, which is what a user of the reference runs from a bare checkout.
-RRTMG-LW (`lw_scheme="rrtmg"`, and `"auto"`, which picks it when its k-tables
-are installed) and SimCloud cloud optics are not ported yet and raise.
+cost controls and coszen averaging): RRTMG-SW (`physics/rrtmg_sw.py`) paired
+with RRTMG-LW (`physics/rrtmg_lw.py`; `lw_scheme="rrtmg"`, or `"auto"`, the
+default, which picks it when its k-tables are installed, as they are) or with
+the Frierson/Byrne/Geen grey two-stream LW (`lw_scheme="grey"`). SimCloud
+cloud optics (`cloud_fields`) are not ported yet and raise.
 
 The adapter exposes the same down()/up() interface as TwoStreamGray so the
 moist physics driver can switch schemes by configuration.
@@ -16,11 +16,15 @@ moist physics driver can switch schemes by configuration.
 from __future__ import annotations
 
 import dataclasses
+import logging
 
+import numpy as np
 import torch
+from torch.profiler import record_function
 
 import isca_tpu_torch.physics.astronomy as astro
 from isca_tpu_torch.constants import Constants, EARTH
+from isca_tpu_torch.physics.rrtmg_lw import KG_NPZ, RRTMGLw, RRTMGLwConfig, kg_available
 from isca_tpu_torch.physics.rrtmg_sw import RRTMGSw, RRTMGSwConfig
 from isca_tpu_torch.physics.two_stream_gray import (
     RadDownResult,
@@ -41,7 +45,7 @@ class RRTMConfig:
     equinox_day: float = 0.75
     albedo_value: float = 0.25      # used only if driver passes none
     o3_mmr: float = 0.0             # constant ozone mass mixing ratio fallback
-    # trace gases for the RRTMG-LW bands (a later slice of the port)
+    # trace gases for the LW bands (rrtm_radiation.F90 has fixed defaults)
     n2ovmr: float = 3.2e-7
     ch4vmr: float = 1.8e-6
     # input guards before the k-distribution solver (rrtm_radiation.F90:
@@ -56,8 +60,8 @@ class RRTMConfig:
     do_zm_tracers: bool = False     # feed zonal-mean q to radiation
     # LW scheme selection: "auto" = RRTMG-LW if its k-tables are installed,
     # else grey; "rrtmg" forces RRTMG-LW; "grey" forces the two-stream LW.
-    # Only "grey" is ported so far.
     lw_scheme: str = "auto"
+    lw_kg_path: str | None = None   # explicit k-table npz (tests)
     # grey-LW companion configuration
     lw: TwoStreamConfig = TwoStreamConfig()
     constants: Constants = EARTH
@@ -82,7 +86,7 @@ def _lon_expand(a, k, zm=False):
 
 
 class RRTMRadiation:
-    """RRTMG-SW + grey-LW radiation, TwoStreamGray interface.
+    """RRTMG-SW + (RRTMG-LW | grey-LW) radiation, TwoStreamGray interface.
 
     Supports the reference adapter's radiation-grid cost controls: `lonstep`
     computes radiation every k-th longitude and linearly interpolates the
@@ -90,27 +94,41 @@ class RRTMRadiation:
     feeds zonally averaged humidity to radiation."""
 
     def __init__(self, config: RRTMConfig = RRTMConfig(), device=None):
-        if config.lw_scheme != "grey":
-            raise NotImplementedError(
-                f"RRTMConfig(lw_scheme={config.lw_scheme!r}): RRTMG-LW is not "
-                "ported yet (it comes with the radiation slice of the port); "
-                "use lw_scheme='grey'")
         self.config = config
         C = config.constants
         self.sw = RRTMGSw(RRTMGSwConfig(
             scon=config.solr_cnst, co2vmr=config.co2ppmv * 1e-6,
             cp_air=C.cp_air, grav=C.grav), device=device)
+        # LW scheme selection
+        self.lw_rrtmg = None
+        use = config.lw_scheme
+        if use == "rrtmg" or (use == "auto" and (config.lw_kg_path or kg_available())):
+            with np.load(config.lw_kg_path or KG_NPZ) as probe:
+                synthetic = "synthetic" in probe.files
+            if synthetic:
+                logging.getLogger("isca_tpu_torch").warning(
+                    "RRTMG-LW is using SYNTHETIC correlated-k tables "
+                    "(shape-correct, physically plausible, NOT AER-accurate). "
+                    "Supply AER's rrtmg_lw.nc via tools/extract_rrtmg_lw.py "
+                    "for production radiation: the same external data file "
+                    "the reference loads at runtime (rrtmg_lw_read_nc.f90).")
+            self.lw_rrtmg = RRTMGLw(
+                RRTMGLwConfig(co2vmr=config.co2ppmv * 1e-6,
+                              n2ovmr=config.n2ovmr, ch4vmr=config.ch4vmr,
+                              grav=C.grav, cp_air=C.cp_air),
+                kg=config.lw_kg_path, device=device)
         self.grey = TwoStreamGray(dataclasses.replace(config.lw, solar_constant=0.0))
 
     def down(self, lat, lon, p_half, t, q, albedo, gmt=0.0, time_since_ae=0.0,
              dt_rad_avg=None, carbon_conc=None, cloud_fields=None) -> RadDownResult:
-        """The SW fluxes and the grey LW down sweep; what up() needs at the
-        radiation (subsampled) resolution is kept on the instance, as
-        isca_tpu's adapter keeps it: call up() after each down()."""
+        """The SW fluxes and the LW down sweep (RRTMG-LW's down phase or the
+        grey one); what up() needs at the radiation (subsampled) resolution
+        is kept on the instance, as isca_tpu's adapter keeps it: call up()
+        after each down()."""
         if cloud_fields is not None:
             raise NotImplementedError(
-                "RRTM radiation with cloud_fields (SimCloud -> cldprop_sw) is "
-                "not ported yet; it comes with the SimCloud slice of the port")
+                "RRTM radiation with cloud_fields (SimCloud -> cldprop_sw and "
+                "cldprop_lw) is not ported to isca_tpu_torch yet (ROADMAP A.6b)")
         cfg = self.config
         # coszen with the same astronomy options as the reference adapter
         orbit = astro.Orbit()
@@ -141,10 +159,30 @@ class RRTMRadiation:
         t = torch.clamp(t, cfg.temp_lower_limit, cfg.temp_upper_limit)
         q = torch.clamp(q, min=cfg.h2o_lower_limit)
 
-        # ---- LW (grey) ----
-        down_lw = self.grey.down(lat, lon, p_half, t, q, albedo,
-                                 gmt=gmt, time_since_ae=time_since_ae,
-                                 dt_rad_avg=dt_rad_avg)
+        # ---- LW ----
+        if self.lw_rrtmg is not None:
+            # half-level temperatures: interior = mean of adjacent layers,
+            # endpoints extrapolated (rrtm_radiation.F90 tz staging)
+            t_half = torch.cat([
+                t[..., :1],
+                0.5 * (t[..., 1:] + t[..., :-1]),
+                1.5 * t[..., -1:] - 0.5 * t[..., -2:-1]], dim=-1)
+            t_half = torch.clamp(t_half, cfg.temp_lower_limit, cfg.temp_upper_limit)
+            with record_function("rrtmg_lw"):
+                lw_down, self._lw_stash = self.lw_rrtmg.down_phase(
+                    p_half, p_full, t, t_half, q, o3, co2vmr=co2)
+            surf_lw_down = lw_down[..., -1]
+            zl = torch.zeros_like(t)
+            grey_fields = dict(lw_dtrans=zl, lw_dtrans_win=zl, b=zl, b_win=zl)
+        else:
+            down_lw = self.grey.down(lat, lon, p_half, t, q, albedo,
+                                     gmt=gmt, time_since_ae=time_since_ae,
+                                     dt_rad_avg=dt_rad_avg)
+            surf_lw_down, lw_down = down_lw.surf_lw_down, down_lw.lw_down
+            grey_fields = dict(lw_dtrans=down_lw.lw_dtrans,
+                               lw_dtrans_win=down_lw.lw_dtrans_win,
+                               b=down_lw.b, b_win=down_lw.b_win)
+            self._grey_down = down_lw
 
         # ---- SW ----
         swf = self.sw(p_half, p_full, t, q, o3, coszen, albedo, albedo, co2vmr=co2)
@@ -152,19 +190,17 @@ class RRTMRadiation:
         sw_down = swf.swdflx * rr
         sw_up = swf.swuflx * rr
         net_surf_sw_down = sw_down[..., -1] - sw_up[..., -1]
-        self._k, self._grey_down = k, down_lw
+        self._k = k
         self._sw_heat, self._sw_up = swf.swhr * rr, sw_up
         ex = lambda a: _lon_expand(a, k, cfg.do_zm_rad)
         return RadDownResult(
             net_surf_sw_down=ex(net_surf_sw_down),
-            surf_lw_down=ex(down_lw.surf_lw_down),
-            lw_down=ex(down_lw.lw_down),
+            surf_lw_down=ex(surf_lw_down),
+            lw_down=ex(lw_down),
             sw_down=ex(sw_down),
             coszen=coszen_full,
             insolation=cfg.solr_cnst * coszen_full,
-            lw_dtrans=ex(down_lw.lw_dtrans),
-            lw_dtrans_win=ex(down_lw.lw_dtrans_win),
-            b=ex(down_lw.b), b_win=ex(down_lw.b_win),
+            **{name: ex(v) for name, v in grey_fields.items()},
         )
 
     def up(self, down: RadDownResult, p_half, t_surf, albedo) -> RadResult:
@@ -174,6 +210,14 @@ class RRTMRadiation:
             sub = lambda a: a[:, ::k]
             p_half, t_surf, albedo = map(sub, (p_half, t_surf, albedo))
         ex = lambda a: _lon_expand(a, k, cfg.do_zm_rad)
+        if self.lw_rrtmg is not None:
+            with record_function("rrtmg_lw"):
+                lwf = self.lw_rrtmg.up_phase(self._lw_stash, t_surf)
+            tdt_rad = lwf.hr + sw_heat
+            net_lw_surf = lwf.uflx[..., -1] - lwf.lw_dn_surf
+            return RadResult(
+                tdt_rad=ex(tdt_rad), tdt_solar=ex(sw_heat), olr=ex(lwf.olr),
+                lw_up=ex(lwf.uflx), sw_up=ex(self._sw_up), net_lw_surf=ex(net_lw_surf))
         lw = self.grey.up(self._grey_down, p_half, t_surf, albedo)
         # grey up() includes its own (zero-insolation) SW; add the RRTMG SW heating
         tdt_rad = lw.tdt_rad + sw_heat

@@ -4,7 +4,9 @@ kernel, the Held-Suarez model and its extended diagnostics on the card
 against the CPU, the run harness (Experiment, restarts) on the card, and the
 grey-moist Frierson GCM (T42L25 against the CPU, its RRTM variant's use of
 the kernel, its restarts, a CO2 series built on the card), the stirring's threefry draws (bit for bit
-against the CPU) and a stirred barotropic step.
+against the CPU) and a stirred barotropic step; RRTMG-LW at T42L25 width
+against the CPU at float64, a step of the MiMA test case, and the radiation
+substepping decision, which reads no CUDA tensor.
 Every test here needs a CUDA device and skips without one.
 
 This file imports torch, numpy and isca_tpu_torch only, so it runs where JAX
@@ -339,3 +341,111 @@ def test_barotropic_step_on_card():
     assert torch.equal(state.rng.cpu(), ref.rng)
     assert bool(torch.isfinite(state.vorg.curr).all())
     assert float(state.s_stir.abs().max()) > 0.0
+
+
+# ---------------------------------------------------------------------------
+# RRTMG-LW, the MiMA GCM and radiation substepping
+# ---------------------------------------------------------------------------
+
+LW_FIELDS = ("uflx", "dflx", "hr", "olr", "lw_dn_surf")
+
+
+def lw_columns(shape=(64, 128), L=25, seed=5):
+    """Top-down MLS-like columns (tests/test_rrtmg_lw.py mls_profile) at
+    T42L25 width, perturbed per column from a seed: T +-5 K, relative
+    humidity 0.1-0.95, surface 290-305 K."""
+    rng = np.random.default_rng(seed)
+    ps = 1.0e5
+    p_half = np.broadcast_to(np.linspace(20.0, ps, L + 1), shape + (L + 1,)).copy()
+    p_full = 0.5 * (p_half[..., :-1] + p_half[..., 1:])
+    t_sfc = rng.uniform(290.0, 305.0, shape)
+    lapse = lambda p: t_sfc[..., None] - 6.5e-3 * 7500.0 * np.log(ps / np.maximum(p, 1.0))
+    t = np.maximum(lapse(p_full), 216.0) + rng.uniform(-5.0, 5.0, shape + (L,))
+    th = np.maximum(lapse(p_half), 216.0)
+    es = 610.78 * np.exp(17.27 * (t - 273.15) / (t - 35.85))
+    q = np.minimum(rng.uniform(0.1, 0.95, shape + (1,)) * 0.622 * es / p_full, 0.02)
+    o3 = 1.5e-5 * np.exp(-((np.log(p_full) - np.log(2000.0)) / 0.8) ** 2) + 1e-8
+    return p_half, p_full, t, th, t_sfc, q, o3
+
+
+def test_rrtmg_lw_T42L25_on_card_matches_cpu_float64():
+    """One RRTMG-LW call on 64 x 128 columns of 25 levels: on the card at
+    float64 within rtol 1e-9 of the CPU's float64 (the same arithmetic,
+    reassociated in cuBLAS's products and sums); at float32 as accurate as
+    the CPU's float32, within 3x, against the CPU's float64."""
+    import warnings
+
+    from isca_tpu_torch.physics.rrtmg_lw import RRTMGLw, RRTMGLwConfig
+
+    args = lw_columns()
+    cfg = RRTMGLwConfig(co2vmr=3.0e-4, n2ovmr=3.2e-7, ch4vmr=1.8e-6)
+
+    def run(device, dtype):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            lw = RRTMGLw(cfg, device=device)
+        out = lw(*(torch.as_tensor(a, dtype=dtype, device=device) for a in args))
+        return {k: getattr(out, k).cpu().numpy().astype(np.float64) for k in LW_FIELDS}
+
+    cpu64, cpu32 = run("cpu", torch.float64), run("cpu", torch.float32)
+    gpu64, gpu32 = run("cuda", torch.float64), run("cuda", torch.float32)
+    for k in LW_FIELDS:
+        scale = np.abs(cpu64[k]).max()
+        np.testing.assert_allclose(gpu64[k], cpu64[k], rtol=1e-9, atol=1e-9 * scale, err_msg=k)
+        gap = np.abs(cpu32[k] - cpu64[k]).max()
+        assert np.abs(gpu32[k] - cpu64[k]).max() <= 3.0 * gap, k
+
+
+def test_mima_gcm_step_on_card():
+    """One step of mima_test_case.py at T42L25 on the card: RRTMG-LW selected,
+    sw_flux launched once, the radiation age on the host, each field within
+    3x the CPU's own float32-versus-float64 difference."""
+    import warnings
+
+    from isca_tpu_torch.models.moist import GreyMoistModel, mima_test_case_config
+
+    def fields(dtype, device):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            model = GreyMoistModel(mima_test_case_config(dtype=dtype), device=device)
+        assert model.physics.radiation.lw_rrtmg is not None
+        before = P.sw_flux_solve.launches
+        state, diag = model.step_with_diagnostics(model.initial_state(), first=True)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            assert P.sw_flux_solve.launches == before + 1
+            assert state.rad_cache.age.device.type == "cpu" and int(state.rad_cache.age) == 1
+        out = {k: v.cpu().numpy().astype(np.float64)
+               for k, v in model.diag_fields(state).items() if k in FRIERSON_FIELDS}
+        out["olr"] = diag["olr"].cpu().numpy().astype(np.float64)
+        return out
+
+    gpu, cpu32, cpu64 = (fields(torch.float32, "cuda"), fields(torch.float32, "cpu"),
+                         fields(torch.float64, "cpu"))
+    assert np.isfinite(gpu["olr"]).all() and 100.0 < gpu["olr"].mean() < 400.0
+    for k in FRIERSON_FIELDS + ("olr",):
+        gap = np.abs(cpu32[k] - cpu64[k]).max()
+        assert np.abs(gpu[k] - cpu32[k]).max() <= 3.0 * gap, k
+
+
+def test_rad_decision_reads_no_cuda_tensor():
+    """The dt_rad decision over 25 steps at MiMA's n_rad = 10, with the
+    stored radiation on the card, under sync debug mode "error": it reads
+    no CUDA tensor (a read of one raises in this mode)."""
+    from isca_tpu_torch.physics.moist_driver import rad_age, rad_due, zero_rad_cache
+
+    cfg = MoistPhysicsConfig(dt_rad=7200.0)
+    cache = zero_rad_cache((64, 128), 25, torch.float32, device="cuda")
+    assert cache.tdt_rad.is_cuda and cache.age.device.type == "cpu"
+    torch.cuda.synchronize()
+    due = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(25):
+            due.append(rad_due(cfg, 720.0, cache))
+            cache = cache._replace(age=rad_age(1) if due[-1] else cache.age + 1)
+        with pytest.raises(RuntimeError):
+            bool(cache.tdt_rad.sum() > 0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert [i for i, d in enumerate(due) if d] == [0, 10, 20]

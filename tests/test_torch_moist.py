@@ -342,7 +342,7 @@ def test_configs_mirror_isca_tpu():
 
 def test_unported_options_raise():
     cfg = config(TORCH, "frierson", torch.float64)
-    for phys in (dict(convection_scheme="FULL_BETTS_MILLER"), dict(convection_scheme="RAS"),
+    for phys in (dict(convection_scheme="RAS"),
                  dict(do_damping=True, damping=tdd.DampingDriverConfig(do_topo_drag=True)),
                  dict(do_damping=True, damping=tdd.DampingDriverConfig(do_mg_drag=True)),
                  dict(do_damping=True, damping=tdd.DampingDriverConfig(do_cg_drag=True)),
@@ -351,10 +351,6 @@ def test_unported_options_raise():
         with pytest.raises(NotImplementedError):
             tmoist.GreyMoistModel(dataclasses.replace(
                 cfg, physics=dataclasses.replace(cfg.physics, **phys)), device="cpu")
-    dt_rad = dataclasses.replace(cfg, physics=dataclasses.replace(cfg.physics, dt_rad=3600.0))
-    m = tmoist.GreyMoistModel(dt_rad, device="cpu")
-    with pytest.raises(NotImplementedError, match="dt_rad"):
-        m.step(m.initial_state(), first=True)
     # the SST series hook of the driver is not ported (ROADMAP A.5b)
     m = tmoist.GreyMoistModel(cfg, device="cpu")
     m.physics.sst_series = object()

@@ -273,8 +273,8 @@ def test_unported_options_raise():
     lats, lons = torch.zeros(2, dtype=torch.float64), torch.zeros(3, dtype=torch.float64)
     # dry convection, the giant-planet surface and the bucket are ported
     # (tests/test_torch_giant.py, tests/test_torch_land.py)
-    for kw in (dict(convection_scheme="RAS"), dict(convection_scheme="FULL_BETTS_MILLER"),
-               dict(bl_scheme="mellor_yamada"), dict(bl_scheme="stable_bl"),
+    for kw in (dict(convection_scheme="RAS"), dict(bl_scheme="mellor_yamada"),
+               dict(bl_scheme="stable_bl"),
                # the damping driver is ported but for its gravity-wave drags
                dict(do_damping=True, damping=tdd.DampingDriverConfig(do_mg_drag=True)),
                dict(do_damping=True, damping=tdd.DampingDriverConfig(do_cg_drag=True)),
@@ -282,17 +282,11 @@ def test_unported_options_raise():
                dict(radiation_scheme="socrates"), dict(do_shallow_conv=True)):
         with pytest.raises(NotImplementedError):
             tmd.MoistPhysics(tmd.MoistPhysicsConfig(**kw), lats, lons)
-    for lw in ("auto", "rrtmg"):
-        with pytest.raises(NotImplementedError, match="RRTMG-LW"):
-            trr.RRTMRadiation(trr.RRTMConfig(lw_scheme=lw), device="cpu")
     with pytest.raises(NotImplementedError, match="cloud_fields"):
         c = columns(0)
         trr.RRTMRadiation(trr.RRTMConfig(lw_scheme="grey"), device="cpu").down(
             *(T(c[k]) for k in ("lat", "lon", "p_half", "t", "q")), T(c["t_surf"]),
             cloud_fields=(None,) * 4)
-    phys = tmd.MoistPhysics(tmd.MoistPhysicsConfig(dt_rad=1800.0), lats, lons)
-    with pytest.raises(NotImplementedError, match="dt_rad"):
-        phys(1200.0, 600.0, *([None] * 11))
 
 
 @pytest.mark.parametrize("radiation,extra", [
