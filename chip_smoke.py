@@ -8,9 +8,11 @@ Phases, each printed as one JSON line:
   build    compiles every kernel under isca_tpu_torch/csrc (nvcc, sm_90a) and
            reports the time and the compiler's register/spill lines;
   kernels  holds each kernel against its plain PyTorch version on the card,
-           on seeded random inputs at the shapes of the main path and at an
-           odd shape, times both with CUDA events, and reports the kernel's
-           launch plan and resident blocks per SM;
+           on seeded random inputs at the shapes of the main paths (sw_flux:
+           8192 x 25 x 112 for RRTMG-SW and 8192 x 25 x 28 for SOCRATES,
+           clear and cloudy) and at an odd shape, times both with CUDA
+           events, and reports the kernel's launch plan and resident blocks
+           per SM;
   slice    drives the column path: the RRTM single-column model at T42 width
            (64 x 128 columns, 25 levels, float32, RRTMG-SW + grey LW) through
            ColumnModel.run; compares 3 steps with the same 3 steps on the CPU
@@ -78,6 +80,21 @@ Phases, each printed as one JSON line:
            at steps 1 and 11 of 20 from cold start and twice in each of
            three timed 20-step runs; ms per step, its median and
            mima_dt_rad7200_T42L25_model_days_per_day; 10 profiled steps.
+  socrates, socrates_cloud, simple_clouds
+           drive exp/test_cases/socrates_aquaplanet_test_case.py (without
+           and with --clouds: SOCRATES radiation, float32 in its own
+           right, SimCloud feeding its cloud optics) and
+           simple_clouds_test_case.py (RRTMG-SW and RRTMG-LW with SimCloud:
+           sw_flux clear then cloudy, RRTMG-LW's cloudy sweeps) as written
+           at T42L25, float32, "highest": 3 steps against the CPU by the 3x
+           rule (olr, and cf with clouds, among the fields) from a moist
+           start (0.01 kg/kg, so that the clouds are there); then the test
+           case as written: 3 warm-up steps, three timed 10-step runs, ms
+           per step, their median and <test case>_T42L25_model_days_per_day,
+           sw_flux once per step (twice on simple_clouds), peak memory, 2
+           profiled steps (launches, idle share, device ms in the
+           "physics", "dynamics", "socrates", "rrtmg_lw" and "cloud_simple"
+           ranges).
   simple   drives the stirred barotropic model
            (barotropic_vorticity_equation_test_case.py) and the shallow-water
            model (shallow_water_test_case.py) at T85 (128 x 256), dt = 1200 s,
@@ -101,8 +118,8 @@ Phases, each printed as one JSON line:
            float32: 3 steps against the CPU (bucket_depth among the fields),
            timed runs, launches per step, idle share; the land's bucket must
            stay within [0, max_bucket_depth_land].
-The two mima phases run after `moist_rrtm`, then simple, giant and
-moist_land; sw_flux must not launch on these last three's paths
+The two mima phases run after `moist_rrtm`, then the three cloud and
+SOCRATES phases, then simple, giant and moist_land; sw_flux must not launch on these last three's paths
 (its count on each is printed). `experiment` also runs the stirred
 barotropic model in two chained one-day segments, held to the bit (the
 stirring key too) against one direct two-day run.
@@ -215,6 +232,7 @@ def _gcm_valid(name, model, state):
 # with each exp, sqrt and division counted as one operation. The cloudy
 # variant does the layer properties twice and blends five of them.
 SW_FLUX_OPS_PER_ELEMENT = {False: 150, True: 265}
+SOCRATES_G = 28        # g-points of SOCRATES' synthetic SW spectrum
 
 
 def sw_flux_inputs(batch, L, cloudy, device, G=112, seed=SEED):
@@ -248,11 +266,12 @@ def sw_flux_bound_ms(B, L, G, cloudy, itemsize=4):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_sw_flux(name, batch, L, cloudy):
-    """Kernel against sw_flux_solve_reference on the card, both timed."""
+def check_sw_flux(name, batch, L, cloudy, G=112):
+    """Kernel against sw_flux_solve_reference on the card, both timed, at
+    batch x L x G (G = 112 for RRTMG-SW, 28 for SOCRATES' SW spectrum)."""
     from isca_tpu_torch.physics import rrtmg_sw
 
-    args, cloud = sw_flux_inputs(batch, L, cloudy, "cuda")
+    args, cloud = sw_flux_inputs(batch, L, cloudy, "cuda", G=G)
     kernel = lambda: rrtmg_sw.sw_flux_solve(*args, cloud=cloud)
     plain = lambda: rrtmg_sw.sw_flux_solve_reference(*args, cloud=cloud)
     out = kernel()
@@ -270,10 +289,10 @@ def check_sw_flux(name, batch, L, cloudy):
         errs[field] = float((a - b).abs().max())
         ok = ok and excess <= 0.0
     B = int(np.prod(batch))
-    bound_ms, bound_by = sw_flux_bound_ms(B, L, 112, cloudy)
-    plan = rrtmg_sw.sw_flux_plan(L, 112, 4)
-    case = dict(case=name, shape=[B, L, 112], cloudy=cloudy, plan=plan._asdict(),
-                blocks_per_sm=rrtmg_sw.sw_flux_blocks_per_sm(L, 112, torch.float32, cloudy),
+    bound_ms, bound_by = sw_flux_bound_ms(B, L, G, cloudy)
+    plan = rrtmg_sw.sw_flux_plan(L, G, 4)
+    case = dict(case=name, shape=[B, L, G], cloudy=cloudy, plan=plan._asdict(),
+                blocks_per_sm=rrtmg_sw.sw_flux_blocks_per_sm(L, G, torch.float32, cloudy),
                 max_abs_err=max(errs.values()), errs=errs, rtol=rtol, atol=atol,
                 ms=cuda_time_ms(kernel), plain_ms=cuda_time_ms(plain),
                 bound_ms=bound_ms, bound_us=1e3 * bound_ms, bound_by=bound_by, ok=ok)
@@ -287,6 +306,8 @@ def check_sw_flux(name, batch, L, cloudy):
 def phase_kernels():
     return [check_sw_flux("t42_clear", (8192,), 25, False),
             check_sw_flux("t42_cloudy", (8192,), 25, True),
+            check_sw_flux("socrates_clear", (8192,), 25, False, G=SOCRATES_G),
+            check_sw_flux("socrates_cloudy", (8192,), 25, True, G=SOCRATES_G),
             check_sw_flux("odd_clear", (7,), 5, False),
             check_sw_flux("odd_cloudy", (7,), 5, True)]
 
@@ -444,7 +465,8 @@ HS_STAGES = ("dft", "legendre", "implicit")
 MOIST_STAGES = ("physics", "dynamics")
 STIR_STAGES = ("stirring", "threefry")
 MIMA_STAGES = MOIST_STAGES + ("rrtmg_lw",)
-ALL_STAGES = HS_STAGES + MIMA_STAGES + STIR_STAGES
+CLOUD_STAGES = ("socrates", "cloud_simple")
+ALL_STAGES = HS_STAGES + MIMA_STAGES + STIR_STAGES + CLOUD_STAGES
 
 
 def hs_config(dtype):
@@ -863,6 +885,118 @@ def phase_mima_dt_rad():
                      for k, v in stage_rows.items()},
           "phase_seconds": time.perf_counter() - t_phase})
     return launches
+
+
+# ---------------------------------------------------------------------------
+# socrates, socrates_cloud, simple_clouds: the SOCRATES aquaplanet without and
+# with SimCloud, and RRTM with SimCloud, at T42L25
+# ---------------------------------------------------------------------------
+
+CLOUD_WARMUP_STEPS, CLOUD_TIMED_STEPS = 3, 10
+# The test cases start dry (2e-6 kg/kg) and make no cloud in a few steps, so
+# the card-against-CPU steps start moist: a uniform 0.01 kg/kg, which the
+# condensation brings to saturation in the upper levels, where SimCloud then
+# puts cloud fraction 1. The timed runs start as the test cases are written.
+MOIST_START_SPHUM = 0.01
+# name: (test case, metric stem, its profiler ranges besides MOIST_STAGES,
+# sw_flux launches per step)
+CLOUD_PHASES = {
+    "socrates": ("socrates_aquaplanet_test_case.py", "socrates_aquaplanet",
+                 ("socrates",), 1),
+    "socrates_cloud": ("socrates_aquaplanet_test_case.py --clouds",
+                       "socrates_aquaplanet_with_cloud", ("socrates", "cloud_simple"), 1),
+    "simple_clouds": ("simple_clouds_test_case.py", "simple_clouds",
+                      ("rrtmg_lw", "cloud_simple"), 2),
+}
+
+
+def cloud_phase_config(name, dtype, moist_start=False):
+    """The phase's exp test case as written (T42L25, dt = 720 s) with exact
+    transforms; moist_start sets the initial humidity to MOIST_START_SPHUM."""
+    from isca_tpu_torch.models import moist
+
+    build = {"socrates": lambda **kw: moist.socrates_aquaplanet_test_case_config(False, **kw),
+             "socrates_cloud": lambda **kw: moist.socrates_aquaplanet_test_case_config(True, **kw),
+             "simple_clouds": moist.simple_clouds_test_case_config}[name]
+    cfg = build(dtype=dtype, transform_precision="highest")
+    return dataclasses.replace(cfg, initial_sphum=MOIST_START_SPHUM) if moist_start else cfg
+
+
+def _cloud_compare_run(model):
+    """FR_COMPARE_STEPS steps from a cold start: the FR_FIELDS, the last
+    step's OLR and, with clouds, its cloud fraction."""
+    state = model.run(model.initial_state(), FR_COMPARE_STEPS - 1)
+    state, diag = model.step_with_diagnostics(state)
+    fields = moist_fields(model, state)
+    for k in ("olr", "cf"):
+        if k in diag:
+            fields[k] = diag[k].cpu().numpy().astype(np.float64)
+    return fields
+
+
+def phase_cloud_gcm(name):
+    """One of CLOUD_PHASES on the card: 3 moist-start steps against the CPU
+    by the 3x rule, then the test case as written: CLOUD_WARMUP_STEPS steps,
+    three timed CLOUD_TIMED_STEPS-step runs, sw_flux launches per step
+    checked, a profile. Returns the launches of the path."""
+    import warnings
+
+    from isca_tpu_torch.models.moist import GreyMoistModel
+    from isca_tpu_torch.physics import rrtmg_sw
+
+    test_case, stem, stages, per_step = CLOUD_PHASES[name]
+    t_phase = time.perf_counter()
+    with warnings.catch_warnings():
+        # the committed RRTMG-LW k-tables are synthetic and say so
+        warnings.simplefilter("ignore", RuntimeWarning)
+        cpu32, cpu64 = (_cloud_compare_run(GreyMoistModel(
+            cloud_phase_config(name, dtype, moist_start=True), device="cpu"))
+            for dtype in (torch.float32, torch.float64))
+        torch.cuda.synchronize()
+        rrtmg_sw.sw_flux_solve.launches = 0
+        gpu = _cloud_compare_run(GreyMoistModel(
+            cloud_phase_config(name, torch.float32, moist_start=True)))
+        model = GreyMoistModel(cloud_phase_config(name, torch.float32))
+    torch.cuda.synchronize()
+    compare, ok = gap_compare(gpu, cpu32, cpu64, FR_TOL_FACTOR, tuple(gpu))
+    launches = rrtmg_sw.sw_flux_solve.launches
+    if not ok or launches != per_step * FR_COMPARE_STEPS:
+        raise RuntimeError(f"{name}: card and CPU runs disagree after {FR_COMPARE_STEPS} "
+                           f"moist-start steps, or sw_flux launched {launches} times, "
+                           f"expected {per_step} per step: {compare}")
+    cloud = ({"cf_max": float(gpu["cf"].max()), "cloudy_share": float((gpu["cf"] > 0).mean())}
+             if "cf" in gpu else None)
+
+    state = model.run(model.initial_state(), CLOUD_WARMUP_STEPS)
+    state, _, runs = _timed_runs(model, state, 0, CLOUD_TIMED_STEPS, FR_TIMED_RUNS)
+    torch.cuda.synchronize()
+    steps = CLOUD_WARMUP_STEPS + FR_TIMED_RUNS * CLOUD_TIMED_STEPS
+    timed_launches = rrtmg_sw.sw_flux_solve.launches - launches
+    if timed_launches != per_step * steps:
+        raise RuntimeError(f"{name}: sw_flux launched {timed_launches} times in {steps} "
+                           f"steps, expected {per_step} per step")
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    ms_per_step = statistics.median(runs)
+    t_range = _gcm_valid(name, model, state)
+    kernels, device_ms, stage_rows, _ = profile_stages(model, state, MOIST_STAGES + stages)
+    core, T = model.config.core, model.core.T
+    emit({"phase": name, "model": test_case, "resolution": core.resolution,
+          "grid": [T.nlat, T.nlon], "levels": core.num_levels, "dt": core.dt,
+          "dtype": str(core.dtype), "transform_precision": core.transform_precision,
+          "width": f"full: {test_case} at T42L25 as written; nothing cut",
+          "compare_steps": FR_COMPARE_STEPS, "compare_initial_sphum": MOIST_START_SPHUM,
+          "tolerance_factor": FR_TOL_FACTOR, "compare": compare, "compare_clouds": cloud,
+          "warmup_steps": CLOUD_WARMUP_STEPS, "timed_runs": FR_TIMED_RUNS,
+          "steps_per_run": CLOUD_TIMED_STEPS, "ms_per_step_runs": runs,
+          "ms_per_step_median": ms_per_step, "metric": f"{stem}_T42L25_model_days_per_day",
+          "value": core.dt / (ms_per_step * 1e-3), "unit": "model-days/day (one GPU)",
+          "sw_flux_launches": launches + timed_launches,
+          "sw_flux_per_step": per_step, "t_range": t_range, "peak_memory_mb": peak_mb,
+          "profile_steps": 2, "device_ms_per_step": device_ms,
+          "launches_per_step": sum(e.count for e in kernels) / 2,
+          "idle_share": 1.0 - device_ms / ms_per_step,
+          "stages": stage_rows, "phase_seconds": time.perf_counter() - t_phase})
+    return launches + timed_launches
 
 
 # ---------------------------------------------------------------------------
@@ -1527,6 +1661,7 @@ def main():
     phase_moist_profile(fr_model, fr_state, fr_ms)
     rrtm_launches = phase_moist_rrtm()
     mima_launches = {"mima": phase_mima(), "mima_dt_rad": phase_mima_dt_rad()}
+    cloud_launches = {name: phase_cloud_gcm(name) for name in CLOUD_PHASES}
     new_paths = {**phase_simple(), **phase_giant(), **phase_moist_land()}
     exp_launches = phase_experiment(hs_model, hs_ms, fr_model, fr_ms)
     main_case = cases[0]                      # the main path's shape and variant
@@ -1536,7 +1671,7 @@ def main():
         "replaces": "isca_tpu/physics/rrtmg_sw.py:782",
         "launches": launches["sw_flux"],
         "launches_by_path": {"slice": launches["sw_flux"], "moist_rrtm": rrtm_launches,
-                             **mima_launches,
+                             **mima_launches, **cloud_launches,
                              **new_paths, **exp_launches},
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],

@@ -3,7 +3,9 @@
 Port of isca_tpu/models/moist.py. Reference composition: GreyCodeBase
 (`grey_isca.x`) - the primitive-equation spectral core + idealized_moist_phys
 with two-stream grey radiation (or RRTM: RRTMG-SW with RRTMG-LW or grey LW,
-optionally every `dt_rad` seconds), simple or full Betts-Miller convection,
+or SOCRATES; optionally every `dt_rad` seconds, and with SimCloud or SPOOKIE
+clouds feeding RRTM's or SOCRATES' cloud optics), simple or full
+Betts-Miller convection,
 large-scale condensation, Monin-Obukhov surface fluxes, K-profile
 boundary layer, an optional upper Rayleigh sponge, and a slab ocean; specific
 humidity as a grid tracer (van Leer + PPM vertical), with the
@@ -373,3 +375,36 @@ def mima_test_case_config(**core_overrides) -> GreyMoistConfig:
             cfg.physics, radiation_scheme="rrtm",
             rrtm=RRTMConfig(do_seasonal=True, o3_mmr=1.0e-6),
             convection_scheme="FULL_BETTS_MILLER"))
+
+
+def socrates_aquaplanet_test_case_config(with_clouds=False, **core_overrides) -> GreyMoistConfig:
+    """The reference's SOCRATES aquaplanet
+    (exp/test_cases/socrates_aquaplanet_test_case.py): GreyMoistConfig()
+    with SOCRATES radiation (synthetic ga7-like spectra, stellar constant
+    1370 W/m2, CO2 300 ppmv); `with_clouds` is the script's --clouds, the
+    socrates_aquaplanet_with_cloud variant, in which SimCloud feeds
+    SOCRATES' cloud optics. SOCRATES runs in float32 whatever the dtype."""
+    from isca_tpu_torch.physics.socrates import SocratesConfig
+
+    cfg = GreyMoistConfig()
+    return dataclasses.replace(
+        cfg, core=dataclasses.replace(cfg.core, **core_overrides),
+        physics=dataclasses.replace(
+            cfg.physics, radiation_scheme="socrates",
+            socrates=SocratesConfig(stellar_constant=1370.0, co2_ppmv=300.0),
+            do_cloud_simple=with_clouds))
+
+
+def simple_clouds_test_case_config(**core_overrides) -> GreyMoistConfig:
+    """The reference's simple_clouds test case
+    (exp/test_cases/simple_clouds_test_case.py): GreyMoistConfig() with
+    RRTM radiation (RRTMConfig(): RRTMG-SW and RRTMG-LW through "auto") and
+    SimCloud, whose clouds feed both RRTMG cloud optics."""
+    from isca_tpu_torch.physics.rrtm_radiation import RRTMConfig
+
+    cfg = GreyMoistConfig()
+    return dataclasses.replace(
+        cfg, core=dataclasses.replace(cfg.core, **core_overrides),
+        physics=dataclasses.replace(
+            cfg.physics, radiation_scheme="rrtm", rrtm=RRTMConfig(),
+            do_cloud_simple=True))

@@ -9,9 +9,10 @@ down-sweep -> mixed-layer implicit surface energy balance -> vertical-diffusion
 up-sweep.
 
 Ported: simple and full Betts-Miller, dry or no convection, large-scale
-condensation, grey two-stream or RRTM (RRTMG-SW with RRTMG-LW or grey LW)
-radiation, every step or every `dt_rad` seconds (substepping), bulk
-surface fluxes over ocean and land (with the Manabe bucket's evaporation
+condensation, SimCloud or SPOOKIE diagnostic clouds, grey two-stream, RRTM
+(RRTMG-SW with RRTMG-LW or grey LW) or SOCRATES radiation (the clouds feed
+RRTM's and SOCRATES' cloud optics), every step or every `dt_rad` seconds
+(substepping), bulk surface fluxes over ocean and land (with the Manabe bucket's evaporation
 limit, `bucket=True`, whose depth the GCM leapfrogs from `dt_bucket`), the
 giant-planet lower boundary (interior heat flux and Rayleigh bottom drag,
 no surface fluxes), the upper-atmosphere damping (Rayleigh sponge and
@@ -19,11 +20,10 @@ constant drag), the K-profile diffusivity, vertical diffusion and the slab
 mixed layer with its land options. A land mask and surface height are
 attached by the model (`land_mask`, `zsurf`), and a CO2 series by the user
 (`co2_series`). Every other scheme and option raises NotImplementedError
-when the driver is built: RAS, SOCRATES, clouds, the gravity-wave drags,
-the other boundary-layer schemes, shallow convection; the SST, sea-ice,
-q-flux and ozone series raise when the driver is called. The keyword
-inputs of those options (`wg_full`, `tke`) are accepted so that the GCM
-calls both packages' drivers alike.
+when the driver is built: RAS, the gravity-wave drags, the other
+boundary-layer schemes, shallow convection; the SST, sea-ice, q-flux and
+ozone series raise when the driver is called. The keyword input of MY2.5
+(`tke`) is accepted so that the GCM calls both packages' drivers alike.
 
 Prognostic fields are taken at the `previous` time level, pressures/heights
 at `current`. The mixed layer advances with dt_real (not the leapfrog 2*dt).
@@ -37,9 +37,17 @@ import math
 from typing import NamedTuple
 
 import torch
+from torch.profiler import record_function
 
 from isca_tpu_torch.constants import Constants, EARTH
 from isca_tpu_torch.physics.betts_miller import BettsMiller, BettsMillerConfig
+from isca_tpu_torch.physics.cloud_simple import (
+    CloudSimple,
+    CloudSimpleConfig,
+    CloudSimpleResult,
+    CloudSpookieConfig,
+    cloud_spookie,
+)
 from isca_tpu_torch.physics.damping_driver import (
     DampingDriverConfig,
     check_ported as check_damping_ported,
@@ -86,8 +94,9 @@ class MoistPhysicsConfig:
     robert_bucket: float = 0.04
     raw_bucket: float = 0.53
     radiation_scheme: str = "two_stream"   # | "rrtm" (RRTMG-SW + RRTMG-LW or grey LW)
-    do_cloud_simple: bool = False
-    do_cloud_spookie: bool = False
+    #                                      | "socrates"
+    do_cloud_simple: bool = False    # SimCloud diagnostic clouds (idealized_moist_phys.F90:120)
+    do_cloud_spookie: bool = False   # SPOOKIE-protocol clouds (mutually exclusive)
     do_simple_sat: bool = True          # sat_vapor_pres do_simple (Frierson)
     roughness_mom: float = 0.05
     roughness_heat: float = 0.05
@@ -111,7 +120,10 @@ class MoistPhysicsConfig:
     betts_miller: BettsMillerConfig = BettsMillerConfig()
     damping: DampingDriverConfig = DampingDriverConfig()
     giant: GiantPlanetConfig = GiantPlanetConfig()
+    cloud: CloudSimpleConfig = CloudSimpleConfig()
+    spookie: "CloudSpookieConfig | None" = None
     rrtm: "RRTMConfig | None" = None       # used when radiation_scheme="rrtm"
+    socrates: "SocratesConfig | None" = None   # radiation_scheme="socrates"
     constants: Constants = EARTH
 
 
@@ -175,9 +187,8 @@ def _check_ported(cfg: MoistPhysicsConfig):
     later = {
         "convection_scheme": cfg.convection_scheme not in (
             "SIMPLE_BETTS_MILLER", "FULL_BETTS_MILLER", "NONE", "DRY"),
-        "radiation_scheme": cfg.radiation_scheme.lower() not in ("two_stream", "rrtm"),
-        "do_cloud_simple": cfg.do_cloud_simple,
-        "do_cloud_spookie": cfg.do_cloud_spookie,
+        "radiation_scheme": cfg.radiation_scheme.lower() not in (
+            "two_stream", "rrtm", "socrates"),
         "bl_scheme": cfg.bl_scheme.lower() != "diffusivity",
         "do_shallow_conv": cfg.do_shallow_conv,
     }
@@ -205,8 +216,17 @@ class MoistPhysics:
             from isca_tpu_torch.physics.rrtm_radiation import RRTMConfig, RRTMRadiation
             self.radiation = RRTMRadiation(config.rrtm or RRTMConfig(),
                                            device=lats.device)
+        elif config.radiation_scheme.lower() == "socrates":
+            # built without a dtype, as isca_tpu's driver builds it: SOCRATES
+            # runs in float32 whatever the model's dtype
+            from isca_tpu_torch.physics.socrates import SocratesConfig, SocratesRadiation
+            self.radiation = SocratesRadiation(config.socrates or SocratesConfig(),
+                                               device=lats.device)
         else:
             self.radiation = TwoStreamGray(config.radiation)
+        self.cloud = CloudSimple(config.cloud, self.svp) if config.do_cloud_simple else None
+        self.spookie_cfg = (config.spookie or CloudSpookieConfig()
+                            if config.do_cloud_spookie else None)
         self.lat2d = lats[:, None] * torch.ones_like(lons)[None, :]
         self.lon2d = torch.ones_like(lats)[:, None] * lons[None, :]
         ml = config.mixed_layer
@@ -224,6 +244,17 @@ class MoistPhysics:
         self.qflux_series = None
         self.o3_series = None
 
+    def _clouds(self, p_half, p_full, t, q, z_full, wg_full) -> CloudSimpleResult:
+        """SimCloud (ocean where the land mask is at most 0.5) or SPOOKIE."""
+        if self.cloud is not None:
+            ocean = (self.land_mask <= 0.5) if self.land_mask is not None else None
+            return self.cloud(p_half, p_full, t, q, z_full,
+                              wg_full if wg_full is not None else torch.zeros_like(t),
+                              p_half[..., -1], ocean=ocean)
+        cf, _, reff, qcl, diag = cloud_spookie(self.spookie_cfg, self.svp, p_full, t, q)
+        return CloudSimpleResult(cf=cf, reff_rad=reff, qcl_rad=qcl,
+                                 frac_liq=diag["frac_liq"], diagnostics=diag)
+
     def __call__(
         self,
         delta_t, dt_real,
@@ -236,7 +267,7 @@ class MoistPhysics:
         gmt=0.0, time_since_ae=0.0,
         bucket_depth=None,      # (lat, lon) at `current` when cfg.bucket
         time_seconds=0.0,       # model time (constant drag, CO2 series)
-        wg_full=None,           # (..., L); feeds SimCloud (not ported)
+        wg_full=None,           # (..., L) pressure velocity for SimCloud
         tke=None,               # (..., L+1); feeds MY2.5 (not ported)
         rad_cache=None,         # RadCache for dt_rad substepping
     ) -> MoistPhysicsResult:
@@ -295,6 +326,14 @@ class MoistPhysics:
             cond_rain = zero2
         diag["precipitation"] = conv_rain + cond_rain
 
+        # ---- SimCloud or SPOOKIE diagnostic clouds (idealized_moist_phys.F90:1016-1033) ----
+        clouds = None
+        if self.cloud is not None or self.spookie_cfg is not None:
+            with record_function("cloud_simple"):
+                clouds = self._clouds(p_half_curr, p_full_curr, t_prev, q_prev,
+                                      z_full_curr, wg_full)
+            diag.update(clouds.diagnostics)
+
         # ---- radiation: downward pass ----
         albedo = surface_albedo(cfg.mixed_layer, self.lat2d, self.land_mask).expand(
             shape2d).to(t_prev.dtype)
@@ -302,6 +341,12 @@ class MoistPhysics:
         dt_rad_radians = dt_rad_avg / C.seconds_per_day * 2.0 * math.pi
         co2 = self.co2_series.at(time_seconds) if self.co2_series is not None else None
         rad_kw = {} if co2 is None else {"carbon_conc": co2}
+        if clouds is not None and cfg.radiation_scheme.lower() in ("rrtm", "socrates"):
+            # SimCloud -> RRTMG-SW / SOCRATES cloud optics (set_cld staging;
+            # for RRTM a coupling the reference leaves commented out); the
+            # grey two-stream scheme takes no clouds
+            rad_kw["cloud_fields"] = (clouds.cf, clouds.reff_rad,
+                                      clouds.qcl_rad, clouds.frac_liq)
         if rad_due(cfg, dt_real, rad_cache):
             rad_down = self.radiation.down(
                 self.lat2d, self.lon2d, p_half_curr, t_prev, q_prev, albedo,

@@ -7,7 +7,8 @@ cost controls and coszen averaging): RRTMG-SW (`physics/rrtmg_sw.py`) paired
 with RRTMG-LW (`physics/rrtmg_lw.py`; `lw_scheme="rrtmg"`, or `"auto"`, the
 default, which picks it when its k-tables are installed, as they are) or with
 the Frierson/Byrne/Geen grey two-stream LW (`lw_scheme="grey"`). SimCloud
-cloud optics (`cloud_fields`) are not ported yet and raise.
+fields (`cloud_fields`) become in-cloud water paths that feed RRTMG-SW's
+cloudy solve through `cldprop_sw` and RRTMG-LW's through `cldprop_lw`.
 
 The adapter exposes the same down()/up() interface as TwoStreamGray so the
 moist physics driver can switch schemes by configuration.
@@ -25,7 +26,7 @@ from torch.profiler import record_function
 import isca_tpu_torch.physics.astronomy as astro
 from isca_tpu_torch.constants import Constants, EARTH
 from isca_tpu_torch.physics.rrtmg_lw import KG_NPZ, RRTMGLw, RRTMGLwConfig, kg_available
-from isca_tpu_torch.physics.rrtmg_sw import RRTMGSw, RRTMGSwConfig
+from isca_tpu_torch.physics.rrtmg_sw import RRTMGSw, RRTMGSwConfig, cldprop_sw
 from isca_tpu_torch.physics.two_stream_gray import (
     RadDownResult,
     RadResult,
@@ -124,11 +125,12 @@ class RRTMRadiation:
         """The SW fluxes and the LW down sweep (RRTMG-LW's down phase or the
         grey one); what up() needs at the radiation (subsampled) resolution
         is kept on the instance, as isca_tpu's adapter keeps it: call up()
-        after each down()."""
-        if cloud_fields is not None:
-            raise NotImplementedError(
-                "RRTM radiation with cloud_fields (SimCloud -> cldprop_sw and "
-                "cldprop_lw) is not ported to isca_tpu_torch yet (ROADMAP A.6b)")
+        after each down().
+
+        cloud_fields: optional (cf, reff_rad [um], qcl_rad [kg/kg],
+        frac_liq) from SimCloud, converted to in-cloud water paths and fed
+        through cldprop into the cloudy solvers (a coupling the reference
+        stages but leaves commented out, idealized_moist_phys.F90:1175)."""
         cfg = self.config
         # coszen with the same astronomy options as the reference adapter
         orbit = astro.Orbit()
@@ -150,6 +152,8 @@ class RRTMRadiation:
             sub = lambda a: a[:, ::k]
             lat, lon, p_half, t, q, albedo, coszen, o3 = map(
                 sub, (lat, lon, p_half, t, q, albedo, coszen, o3))
+            if cloud_fields is not None:
+                cloud_fields = tuple(map(sub, cloud_fields))
 
         p_full = 0.5 * (p_half[..., :-1] + p_half[..., 1:])
         co2 = carbon_conc * 1e-6 if carbon_conc is not None else None
@@ -158,6 +162,21 @@ class RRTMRadiation:
         # call: the k-tables are only valid over a finite (T, q) range
         t = torch.clamp(t, cfg.temp_lower_limit, cfg.temp_upper_limit)
         q = torch.clamp(q, min=cfg.h2o_lower_limit)
+
+        cloud_kw, lw_cloud_kw = {}, {}
+        if cloud_fields is not None:
+            cf, reff, qcl, frac_liq = cloud_fields
+            dp = p_half[..., 1:] - p_half[..., :-1]
+            # in-cloud water path [g/m2]: grid-mean qcl / cloud fraction
+            cwp = qcl / torch.clamp(cf, min=1e-4) * dp / cfg.constants.grav * 1.0e3
+            cwp = torch.where(cf > 1e-4, cwp, 0.0)
+            clwp = cwp * frac_liq
+            ciwp = cwp * (1.0 - frac_liq)
+            tauc, ssac, asmc = cldprop_sw(cf, clwp, ciwp, reff, reff)
+            cloud_kw = dict(cldfrac=cf, taucld=tauc, ssacld=ssac, asmcld=asmc)
+            lw_cloud_kw = dict(cldfrac=cf, clwp=clwp, ciwp=ciwp,
+                               rel=torch.clamp(reff, 2.5, 60.0),
+                               rei=torch.clamp(reff, 5.0, 131.0))
 
         # ---- LW ----
         if self.lw_rrtmg is not None:
@@ -170,7 +189,7 @@ class RRTMRadiation:
             t_half = torch.clamp(t_half, cfg.temp_lower_limit, cfg.temp_upper_limit)
             with record_function("rrtmg_lw"):
                 lw_down, self._lw_stash = self.lw_rrtmg.down_phase(
-                    p_half, p_full, t, t_half, q, o3, co2vmr=co2)
+                    p_half, p_full, t, t_half, q, o3, co2vmr=co2, **lw_cloud_kw)
             surf_lw_down = lw_down[..., -1]
             zl = torch.zeros_like(t)
             grey_fields = dict(lw_dtrans=zl, lw_dtrans_win=zl, b=zl, b_win=zl)
@@ -185,7 +204,8 @@ class RRTMRadiation:
             self._grey_down = down_lw
 
         # ---- SW ----
-        swf = self.sw(p_half, p_full, t, q, o3, coszen, albedo, albedo, co2vmr=co2)
+        swf = self.sw(p_half, p_full, t, q, o3, coszen, albedo, albedo, co2vmr=co2,
+                      **cloud_kw)
         # Earth-sun distance factor scales incident flux (scalar rr)
         sw_down = swf.swdflx * rr
         sw_up = swf.swuflx * rr

@@ -4,7 +4,8 @@ Port of isca_tpu/physics/rrtmg_lw.py, a re-implementation of the AER
 RRTMG-LW column model vendored in the reference
 (src/atmos_param/rrtm_radiation/rrtmg_lw/gcm_model/src: rrtmg_lw_setcoef,
 _taumol, _rtrn, _cldprop and the inatm column amounts of
-rrtmg_lw_rad.nomcica.f90). Every (column, layer, g-point) is batched: table
+rrtmg_lw_rad.nomcica.f90, and the McICA subcolumn path of rrtmg_lw_rad.f90
+with `mcica_key`). Every (column, layer, g-point) is batched: table
 lookups are one-hot weighted matmuls whose weight matrices are built once per
 call and shared by all 16 bands, the troposphere/stratosphere split is a
 per-layer mask over both table regions, and the downward and upward
@@ -35,6 +36,7 @@ import numpy as np
 import torch
 
 from isca_tpu_torch import resolve_device
+from isca_tpu_torch.physics.mcica import mcica_subcol
 
 DATA = Path(__file__).resolve().parent.parent / "data"
 STATIC_NPZ = DATA / "rrtmg_lw_static.npz"
@@ -985,10 +987,6 @@ class RRTMGLw:
         """t_surf-independent computation: column amounts, setcoef, taumol,
         cloud optics and the downward rtrn pass. Returns (lw_down top-down
         (..., L+1), stash) — complete with `up_phase(stash, t_surf)`."""
-        if mcica_key is not None:
-            raise NotImplementedError(
-                "RRTMG-LW with mcica_key (McICA cloud subcolumns, physics/mcica.py) "
-                "is not ported to isca_tpu_torch yet (ROADMAP A.6b)")
         cfg = self.config
         flip = lambda a: torch.flip(a, (-1,))
         pavel = flip(p_full) * 1e-2
@@ -1030,7 +1028,15 @@ class RRTMGLw:
 
         taucloud = None
         cldf_bu = None
-        if cldfrac is not None:
+        if cldfrac is not None and mcica_key is not None:
+            # McICA: one binary stochastic subcolumn per g-point
+            # (rrtmg_lw_rad.f90 + mcica_subcol_gen_lw.f90 path)
+            cldf_g, clwp_g, ciwp_g = mcica_subcol(mcica_key, cldfrac, clwp, ciwp, NGPT)
+            flipl = lambda a: torch.flip(a, (-2,))
+            cldf_bu = flipl(cldf_g)
+            taucloud = cldprop_lw_mcica(flipl(clwp_g), flipl(ciwp_g), flip(rel),
+                                        flip(rei), static, self.band_of_g)
+        elif cldfrac is not None:
             cldf_bu = flip(cldfrac)
             taucloud = cldprop_lw(cldf_bu, flip(clwp), flip(ciwp),
                                   flip(rel), flip(rei), static)
@@ -1073,7 +1079,8 @@ class RRTMGLw:
         """p in Pa; q specific humidity [kg/kg]; o3 mass mixing ratio;
         t_half (..., L+1) level temperatures (top-down); t_surf (...).
         Cloud water paths [g/m2] and effective radii [microns], top-down.
-        `mcica_key` (McICA subcolumns) is not ported yet and raises."""
+        With `mcica_key` (a uint32[2] threefry key), clouds are sampled
+        stochastically per g-point (McICA, physics/mcica.py)."""
         _, stash = self.down_phase(p_half, p_full, t_full, t_half, q, o3,
                                    cldfrac=cldfrac, clwp=clwp, ciwp=ciwp,
                                    rel=rel, rei=rei, co2vmr=co2vmr,

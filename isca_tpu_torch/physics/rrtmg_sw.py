@@ -828,3 +828,81 @@ class RRTMGSw:
         swhr = (cfg.grav / cfg.cp_air) * (fnet[..., :-1] - fnet[..., 1:]) / dp
         return SwFluxes(swdflx=swdflx, swuflx=swuflx, swdflxc=swdflxc,
                         swuflxc=swuflxc, swhr=swhr, dirdflx=dirdflx)
+
+
+# ---------------------------------------------------------------------------
+# cloud optical properties (rrtmg_sw_cldprop.f90 cldprop_sw, inflag=2)
+# ---------------------------------------------------------------------------
+
+CLD_DATA = Path(__file__).resolve().parent.parent / "data" / "rrtmg_sw_cld.npz"
+
+
+@functools.lru_cache(maxsize=None)
+def _cld_tables(device: torch.device):
+    """isca_tpu's cloud-optics tables on `device`, in float32 whatever the
+    run's dtype, as isca_tpu rounds them (`_CldTables`)."""
+    with np.load(CLD_DATA) as d:
+        return {k: torch.as_tensor(d[k].astype(np.float32)).to(device) for k in d.files}
+
+
+def cldprop_sw(cldfrac, clwp, ciwp, rel, rei, iceflag=2, liqflag=1):
+    """Per-band cloud optical properties from water paths and particle sizes.
+
+    Port of isca_tpu's cldprop_sw (rrtmg_sw_cldprop.f90:40-226), inflag=2:
+      - liquid (liqflag=1): Hu & Stamnes (1993) tables extliq1/ssaliq1/
+        asyliq1 indexed by effective radius 2.5-60 um;
+      - ice iceflag=2: Streamer v3.0 tables (extice2...) for re 5-131 um;
+        iceflag=3: Fu (1996) generalized effective size tables (extice3...).
+
+    Inputs (..., L): cloud fraction, in-cloud liquid/ice water paths [g/m2],
+    liquid/ice effective radii [micron]. Returns UNSCALED (tau, ssa, g) per
+    band (..., L, 14) for the solver's combine-then-delta-scale cloudy path.
+    """
+    t = _cld_tables(cldfrac.device)
+    eps = 1e-6
+
+    # liquid: index = int(radliq - 1.5), clamped to 1..57 (1-based)
+    radliq = torch.clamp(rel, 2.5, 60.0)
+    idxl = torch.clamp(_trunc(radliq - 1.5), 1, 57) - 1    # 0-based
+    fintl = radliq - 1.5 - (idxl + 1)
+
+    def liq(tab):
+        a = tab[idxl]                     # (..., L, 14)
+        b = tab[idxl + 1]
+        return a + fintl[..., None] * (b - a)
+    extliq = liq(t["extliq1"])
+    ssaliq = torch.clamp(liq(t["ssaliq1"]), max=1.0)
+    gliq = liq(t["asyliq1"])
+
+    if iceflag not in (2, 3):
+        raise ValueError(f"iceflag {iceflag} not supported (2 or 3)")
+    # iceflag 2: Streamer tables, re 5-131 um (43 rows); 3: Fu, 5-140 um (46)
+    rmax, nrow = (131.0, 43) if iceflag == 2 else (140.0, 46)
+    radice = torch.clamp(rei, 5.0, rmax)
+    factor = (radice - 2.0) / 3.0
+    idxi = torch.clamp(_trunc(factor), max=nrow - 1) - 1
+    idxi = torch.clamp(idxi, 0, nrow - 2)
+    finti = factor - (idxi + 1)
+
+    def ice(tab):
+        return tab[idxi] + finti[..., None] * (tab[idxi + 1] - tab[idxi])
+    extice = ice(t[f"extice{iceflag}"])
+    ssaice = torch.clamp(ice(t[f"ssaice{iceflag}"]), max=1.0)
+    gice = ice(t[f"asyice{iceflag}"])
+
+    has_liq = (clwp > 0.0)[..., None]
+    has_ice = (ciwp > 0.0)[..., None]
+    tauliq = torch.where(has_liq, clwp[..., None] * extliq, 0.0)
+    tauice = torch.where(has_ice, ciwp[..., None] * extice, 0.0)
+    tauc = tauliq + tauice
+    scatliq = torch.where(has_liq, ssaliq * tauliq, 0.0)
+    scatice = torch.where(has_ice, ssaice * tauice, 0.0)
+    scat = scatliq + scatice
+    ssac = scat / torch.clamp(tauc, min=eps)
+    asmc = (scatliq * gliq + scatice * gice) / torch.clamp(scat, min=eps)
+
+    cloudy = (cldfrac > 1e-12)[..., None]
+    tauc = torch.where(cloudy, tauc, 0.0)
+    ssac = torch.where(cloudy, ssac, 1.0)
+    asmc = torch.where(cloudy, asmc, 0.0)
+    return tauc, ssac, asmc

@@ -1,6 +1,6 @@
 """Count the operations a model step would launch on the card, on the CPU.
 
-    python -m isca_tpu_torch.utils.launch_count mima [--resolution T21] [--steps 2]
+    python -m isca_tpu_torch.utils.launch_count MODEL [--resolution T21] [--steps 2]
 
 Runs a model's steps on the CPU under a dispatch mode that counts every
 non-view ATen call that reaches a backend: on the card each is about one
@@ -8,8 +8,11 @@ kernel launch. The plain PyTorch version of a hand-written kernel counts
 as the one launch its kernel makes. The count does not depend on the width,
 so a small resolution predicts the full-width one; it does depend on the
 number of levels (the column schemes loop over them), which is kept. Prints
-one JSON line: the calls per step, and those inside the "physics" and
-"rrtmg_lw" profiler ranges.
+one JSON line: the calls per step, and those inside the "physics",
+"rrtmg_lw", "socrates" and "cloud_simple" profiler ranges. The models are
+the test cases' configurations: frierson, mima (and mima_dt_rad, with
+MiMA's dt_rad = 7200 s), socrates and socrates_cloud (the SOCRATES
+aquaplanet without and with --clouds) and simple_clouds.
 """
 
 from __future__ import annotations
@@ -74,18 +77,22 @@ def _ranges(counter, names):
     return (enter, exit_), (on_enter, on_exit)
 
 
-def build(name, resolution):
-    from isca_tpu_torch.models.moist import (
-        GreyMoistModel,
-        frierson_test_case_config,
-        mima_test_case_config,
-    )
+MODELS = ("frierson", "mima", "mima_dt_rad", "socrates", "socrates_cloud", "simple_clouds")
+RANGES = {"physics", "rrtmg_lw", "socrates", "cloud_simple"}
 
-    cfg = frierson_test_case_config() if name == "frierson" else mima_test_case_config()
+
+def build(name, resolution):
+    from isca_tpu_torch.models import moist
+
+    cfg = {"frierson": moist.frierson_test_case_config,
+           "socrates": moist.socrates_aquaplanet_test_case_config,
+           "socrates_cloud": lambda: moist.socrates_aquaplanet_test_case_config(True),
+           "simple_clouds": moist.simple_clouds_test_case_config,
+           }.get(name, moist.mima_test_case_config)()
     physics = cfg.physics
     if name == "mima_dt_rad":
         physics = dataclasses.replace(physics, dt_rad=7200.0)   # exp/namelists/mima.nml:87
-    return GreyMoistModel(dataclasses.replace(
+    return moist.GreyMoistModel(dataclasses.replace(
         cfg, core=dataclasses.replace(cfg.core, resolution=resolution), physics=physics),
         device="cpu")
 
@@ -97,7 +104,7 @@ def count_steps(model, steps):
     state = model.step(model.initial_state(), first=True)
     counter = CountLaunches()
     plain, counted = _plain_as_one_launch(counter)
-    (enter, exit_), (on_enter, on_exit) = _ranges(counter, {"physics", "rrtmg_lw"})
+    (enter, exit_), (on_enter, on_exit) = _ranges(counter, RANGES)
     rrtmg_sw.sw_flux_solve_reference = counted
     profiler.record_function.__enter__, profiler.record_function.__exit__ = on_enter, on_exit
     try:
@@ -112,7 +119,7 @@ def count_steps(model, steps):
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("model", choices=("frierson", "mima", "mima_dt_rad"))
+    p.add_argument("model", choices=MODELS)
     p.add_argument("--resolution", default="T21")
     p.add_argument("--steps", type=int, default=2)
     args = p.parse_args(argv)

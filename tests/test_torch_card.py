@@ -6,7 +6,9 @@ grey-moist Frierson GCM (T42L25 against the CPU, its RRTM variant's use of
 the kernel, its restarts, a CO2 series built on the card), the stirring's threefry draws (bit for bit
 against the CPU) and a stirred barotropic step; RRTMG-LW at T42L25 width
 against the CPU at float64, a step of the MiMA test case, and the radiation
-substepping decision, which reads no CUDA tensor.
+substepping decision, which reads no CUDA tensor; a cloudy SOCRATES
+aquaplanet step and a simple_clouds step (RRTM with SimCloud) on the card
+against the CPU, and McICA's draws on the card bit for bit against the CPU.
 Every test here needs a CUDA device and skips without one.
 
 This file imports torch, numpy and isca_tpu_torch only, so it runs where JAX
@@ -86,6 +88,8 @@ def test_sw_flux_kernel_matches_plain(cloudy, dtype, batch, L):
     (np.float32, (5,), 64, 128),     # full chunks: 2 of 64 at float32
     (np.float64, (5,), 64, 128),     # 3 chunks of 43, 43, 42 at float64
     (np.float32, (11,), 40, 112),    # deeper than the main path's L = 25
+    (np.float32, (9,), 25, 28),      # SOCRATES' synthetic SW spectrum
+    (np.float64, (9,), 25, 28),
 ])
 def test_sw_flux_kernel_matches_plain_other_widths(cloudy, dtype, batch, L, G):
     check_kernel_matches_plain(cloudy, dtype, batch, L, G)
@@ -449,3 +453,68 @@ def test_rad_decision_reads_no_cuda_tensor():
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert [i for i, d in enumerate(due) if d] == [0, 10, 20]
+
+
+# ---------------------------------------------------------------------------
+# clouds and SOCRATES
+# ---------------------------------------------------------------------------
+
+def cloudy_gcm_fields(config, dtype, device, launches):
+    """One step of a test-case config at T21L25 started moist (0.01 kg/kg:
+    SimCloud makes clouds from the first step): the FRIERSON_FIELDS, olr
+    and cf. On the card, sw_flux must launch `launches` times."""
+    import dataclasses
+    import warnings
+
+    from isca_tpu_torch.models.moist import GreyMoistModel
+
+    cfg = dataclasses.replace(config(dtype=dtype, resolution="T21"), initial_sphum=0.01)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        model = GreyMoistModel(cfg, device=device)
+    before = P.sw_flux_solve.launches
+    state, diag = model.step_with_diagnostics(model.initial_state(), first=True)
+    if device == "cuda":
+        torch.cuda.synchronize()
+        assert P.sw_flux_solve.launches == before + launches
+    out = {k: v.cpu().numpy().astype(np.float64)
+           for k, v in model.diag_fields(state).items() if k in FRIERSON_FIELDS}
+    for k in ("olr", "cf"):
+        out[k] = diag[k].cpu().numpy().astype(np.float64)
+    return out
+
+
+@pytest.mark.parametrize("case", ["socrates_cloud", "simple_clouds"])
+def test_cloudy_gcm_step_on_card_matches_cpu(case):
+    """One cloudy step at T21L25 on the card: SOCRATES with SimCloud (sw_flux
+    once, G = 28, the cloud fraction expanded to full shape before the
+    kernel; a broadcast one would raise here and not on the CPU) or RRTM with
+    SimCloud (sw_flux twice: clear, then total sky); each field within 3x the
+    CPU's own float32-versus-float64 difference."""
+    from isca_tpu_torch.models import moist
+
+    config, launches = {
+        "socrates_cloud": (lambda **kw: moist.socrates_aquaplanet_test_case_config(True, **kw), 1),
+        "simple_clouds": (moist.simple_clouds_test_case_config, 2)}[case]
+    gpu, cpu32, cpu64 = (cloudy_gcm_fields(config, torch.float32, "cuda", launches),
+                         cloudy_gcm_fields(config, torch.float32, "cpu", launches),
+                         cloudy_gcm_fields(config, torch.float64, "cpu", launches))
+    assert gpu["cf"].max() == 1.0 and np.isfinite(gpu["olr"]).all()
+    for k in FRIERSON_FIELDS + ("olr", "cf"):
+        gap = np.abs(cpu32[k] - cpu64[k]).max()
+        assert np.abs(gpu[k] - cpu32[k]).max() <= 3.0 * gap, k
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_mcica_draws_on_card_equal_cpu(dtype):
+    from isca_tpu_torch.physics.mcica import mcica_subcol
+    from isca_tpu_torch.utils.threefry import prng_key
+
+    rng = np.random.default_rng(3)
+    cf = np.where(rng.uniform(0, 1, (64, 25)) > 0.4, rng.uniform(0, 1, (64, 25)), 0.0)
+    args = (cf, cf * 50.0, cf * 20.0)
+    out = {d: mcica_subcol(prng_key(9, device=d), *(torch.as_tensor(a, dtype=dtype, device=d)
+                                                     for a in args), 140)
+           for d in ("cpu", "cuda")}
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert a.is_cuda and torch.equal(a.cpu(), b)

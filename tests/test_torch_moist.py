@@ -347,12 +347,16 @@ def test_unported_options_raise():
                  dict(do_damping=True, damping=tdd.DampingDriverConfig(do_mg_drag=True)),
                  dict(do_damping=True, damping=tdd.DampingDriverConfig(do_cg_drag=True)),
                  dict(bl_scheme="mellor_yamada"), dict(bl_scheme="edt"),
-                 dict(do_shallow_conv=True), dict(do_cloud_simple=True)):
+                 dict(bl_scheme="entrain"), dict(bl_scheme="stable_bl"),
+                 dict(do_shallow_conv=True)):
         with pytest.raises(NotImplementedError):
             tmoist.GreyMoistModel(dataclasses.replace(
                 cfg, physics=dataclasses.replace(cfg.physics, **phys)), device="cpu")
-    # the SST series hook of the driver is not ported (ROADMAP A.5b)
+    # the series hooks of the driver are not ported (ROADMAP A.5b)
     m = tmoist.GreyMoistModel(cfg, device="cpu")
-    m.physics.sst_series = object()
-    with pytest.raises(NotImplementedError, match="sst_series"):
-        m.step(m.initial_state(), first=True)
+    state = m.initial_state()
+    for hook in ("sst_series", "ice_series", "qflux_series", "o3_series"):
+        setattr(m.physics, hook, object())
+        with pytest.raises(NotImplementedError, match=hook):
+            m.step(state, first=True)
+        setattr(m.physics, hook, None)

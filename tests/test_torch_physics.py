@@ -278,15 +278,13 @@ def test_unported_options_raise():
                # the damping driver is ported but for its gravity-wave drags
                dict(do_damping=True, damping=tdd.DampingDriverConfig(do_mg_drag=True)),
                dict(do_damping=True, damping=tdd.DampingDriverConfig(do_cg_drag=True)),
-               dict(do_cloud_spookie=True), dict(do_cloud_simple=True), dict(bl_scheme="edt"),
-               dict(radiation_scheme="socrates"), dict(do_shallow_conv=True)):
+               # SimCloud, SPOOKIE, SOCRATES and RRTM's cloud_fields are
+               # ported (tests/test_torch_cloud_simple.py, test_torch_socrates.py,
+               # test_torch_clouds_rrtm.py)
+               dict(bl_scheme="edt"), dict(bl_scheme="entrain"), dict(bl_scheme="my25"),
+               dict(do_shallow_conv=True)):
         with pytest.raises(NotImplementedError):
             tmd.MoistPhysics(tmd.MoistPhysicsConfig(**kw), lats, lons)
-    with pytest.raises(NotImplementedError, match="cloud_fields"):
-        c = columns(0)
-        trr.RRTMRadiation(trr.RRTMConfig(lw_scheme="grey"), device="cpu").down(
-            *(T(c[k]) for k in ("lat", "lon", "p_half", "t", "q")), T(c["t_surf"]),
-            cloud_fields=(None,) * 4)
 
 
 @pytest.mark.parametrize("radiation,extra", [

@@ -220,15 +220,25 @@ def test_rrtm_default_builds_rrtmg_lw(caplog):
 
 
 def test_mcica_and_cloud_fields_raise_naming_a6b():
+    """McICA and the RRTM adapter's cloud_fields were ported by A.6b and no
+    longer raise (their parity with isca_tpu is in
+    tests/test_torch_clouds_rrtm.py): with no clouds a McICA key changes
+    nothing, and the adapter takes SimCloud's fields."""
+    from isca_tpu_torch.utils.threefry import prng_key
+
     lw = lw_port()
-    p_half, p_full, t_full, t_half, t_surf, q, o3 = map(T, column())
-    with pytest.raises(NotImplementedError, match="A.6b"):
-        lw(p_half, p_full, t_full, t_half, t_surf, q, o3, mcica_key=object())
+    args = tuple(map(T, column()))
+    kw = {k: T(v) for k, v in clouds(args[1].shape, frac=0.0).items()}
+    plain = lw(*args, **kw)
+    mc = lw(*args, mcica_key=prng_key(3, device="cpu"), **kw)
+    close_tuple(mc, plain, rtol=0.0, what="mcica, no cloud")
     c = rad_columns()
-    with pytest.warns(RuntimeWarning), pytest.raises(NotImplementedError, match="A.6b"):
-        trr.RRTMRadiation(trr.RRTMConfig(), device="cpu").down(
+    cf = np.full(c["t"].shape, 0.5)
+    with pytest.warns(RuntimeWarning):
+        down = trr.RRTMRadiation(trr.RRTMConfig(), device="cpu").down(
             *(T(c[k]) for k in ("lat", "lon", "p_half", "t", "q")), T(c["t_surf"]),
-            cloud_fields=(None,) * 4)
+            cloud_fields=(T(cf), T(np.full_like(cf, 12.0)), T(cf * 1e-4), T(np.ones_like(cf))))
+    assert bool(torch.isfinite(down.surf_lw_down).all())
 
 
 def test_planck_table_integrates_to_stefan_boltzmann():
