@@ -118,9 +118,43 @@ Phases, each printed as one JSON line:
            float32: 3 steps against the CPU (bucket_depth among the fields),
            timed runs, launches per step, idle share; the land's bucket must
            stay within [0, max_bucket_depth_land].
+  mima_gwd MiMA as mima_test_case.py writes it (T42L25) plus mima.nml's
+           damping (Rayleigh sponge below 50 Pa) and the Alexander-Dunkerton
+           convective gravity-wave drag (do_cg_drag), with seeded 12-month
+           ozone (on pressure levels, RRTM's o3 input) and q-flux series
+           (isca_tpu_torch/models/cases.py: the real input files are not
+           in the repository): 3 steps against the CPU by the 3x rule
+           (gwfu_cgwd and olr among the fields); 3 warm-up steps, three
+           timed 10-step runs, mima_gwd_T42L25_model_days_per_day, sw_flux
+           once per step, peak memory, 2 profiled steps with the "cg_drag"
+           and "rrtmg_lw" ranges.
+  continents_sst
+           the realistic continents (T42L25, the bucket) with prescribed
+           ocean SSTs (do_sc_sst, specify_sst_over_ocean_only), a sea-ice
+           albedo and the orographic gravity-wave drag (do_mg_drag, hprime
+           300 m over land), the SST and ice series seeded: 3 steps against
+           the CPU (albedo and udt_gwd among the fields), the ocean's
+           surface temperature equal to the SST series and the land's not,
+           timed runs as mima_gwd, the "mg_drag" range; sw_flux 0.
+  ras_bl   frierson_test_case_config() with RAS: 3 steps against the CPU from
+           a conditionally unstable start (cases.convective_start; the cold
+           start convects nowhere), timed runs from the cold start as
+           mima_gwd, the "ras" range; then with simple Betts-Miller and each
+           of bl_scheme = mellor_yamada (tke among the fields), edt, entrain
+           and stable_bl with do_shallow_conv: 3 steps against the CPU at
+           T21L25 (BL_COMPARE_RESOLUTION) and one timed 10-step run at
+           T42L25 each, 2 profiled steps with the scheme's
+           range. The cloud-base level klcl and the PBL top z_pbl are
+           discrete choices, held by counting the columns whose choice
+           differs (CHOICE_FIELDS). sw_flux 0.
+The CPU's float32 and float64 runs that mima_gwd, continents_sst and
+ras_bl compare with are made by two worker processes (two threads each,
+`cpu_reference`), started after the build, so that they run beside the
+earlier phases; the earlier phases' card timings share the host with them.
 The two mima phases run after `moist_rrtm`, then the three cloud and
-SOCRATES phases, then simple, giant and moist_land; sw_flux must not launch on these last three's paths
-(its count on each is printed). `experiment` also runs the stirred
+SOCRATES phases, then simple, giant, moist_land, mima_gwd, continents_sst
+and ras_bl; sw_flux must not launch on the paths of simple, giant,
+moist_land, continents_sst and ras_bl (its count on each is printed). `experiment` also runs the stirred
 barotropic model in two chained one-day segments, held to the bit (the
 stirring key too) against one direct two-day run.
 Then the `{"kernels": [...]}` summary line, the raw `nvidia-smi` name and
@@ -134,11 +168,13 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import multiprocessing
 import statistics
 import subprocess
 import sys
 import time
 import types
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 import torch
@@ -466,7 +502,10 @@ MOIST_STAGES = ("physics", "dynamics")
 STIR_STAGES = ("stirring", "threefry")
 MIMA_STAGES = MOIST_STAGES + ("rrtmg_lw",)
 CLOUD_STAGES = ("socrates", "cloud_simple")
-ALL_STAGES = HS_STAGES + MIMA_STAGES + STIR_STAGES + CLOUD_STAGES
+# the drags' and the convection and boundary-layer schemes' ranges
+SCHEME_STAGES = ("cg_drag", "mg_drag", "ras", "my25", "edt", "entrain", "stable_bl",
+                 "shallow_conv")
+ALL_STAGES = HS_STAGES + MIMA_STAGES + STIR_STAGES + CLOUD_STAGES + SCHEME_STAGES
 
 
 def hs_config(dtype):
@@ -1237,26 +1276,17 @@ def phase_giant():
 LAND_FIELDS = FR_FIELDS + ("bucket_depth",)
 
 
-def continents_model(dtype, device=None):
+def continents_model(dtype, device=None, continents_sst=False):
     """exp/test_cases/realistic_continents_test_case.py: GreyMoistConfig()
     (T42L25, dt = 720 s) with the bucket, the idealized continents and the
-    Sauliere 2012 topography band-limited through the model's truncation."""
-    from isca_tpu_torch.models.moist import GreyMoistConfig, GreyMoistModel
-    from isca_tpu_torch.utils.land_generator import generate_land
-    from isca_tpu_torch.utils.topography import band_limit_topography
+    Sauliere 2012 topography band-limited through the model's truncation;
+    continents_sst adds cases.py's prescribed ocean SSTs, sea ice and
+    orographic drag (hprime 300 m over land)."""
+    from isca_tpu_torch.models import cases
+    from isca_tpu_torch.models.moist import GreyMoistModel
 
-    cfg = GreyMoistConfig()
-    cfg = dataclasses.replace(
-        cfg, core=dataclasses.replace(cfg.core, dtype=dtype, transform_precision="highest"),
-        physics=dataclasses.replace(cfg.physics, bucket=True))
-    model = GreyMoistModel(cfg, device=device)
-    T = model.core.T
-    lats, lons = np.degrees(T.lats.cpu().numpy()), np.degrees(T.lons.cpu().numpy())
-    land, topo = generate_land(lats, lons, "continents", topo_mode="sauliere2012")
-    topo = band_limit_topography(T, np.asarray(topo, np.float64), n_smooth_passes=2,
-                                 smooth_fraction=0.02)
-    model.set_land(land, surf_geopotential=topo)
-    return model
+    return cases.set_continents(GreyMoistModel(cases.continents_config(
+        dtype, continents_sst, transform_precision="highest"), device=device))
 
 
 def phase_moist_land():
@@ -1306,6 +1336,276 @@ def phase_moist_land():
           "bucket_depth_land_mean_m": float(depth[land].mean()),
           "t_range": t_range, "peak_memory_mb": peak_mb, "sw_flux_launches": sw_launches})
     return {"moist_land": sw_launches}
+
+
+# ---------------------------------------------------------------------------
+# mima_gwd, continents_sst, ras_bl: the gravity-wave drags, the series and the
+# other convection and boundary-layer schemes at T42L25
+# ---------------------------------------------------------------------------
+
+NEW_WARMUP_STEPS, NEW_TIMED_STEPS = 3, 10
+MIMA_GWD_FIELDS = MIMA_FIELDS + ("gwfu_cgwd",)
+SST_FIELDS = LAND_FIELDS + ("albedo", "udt_gwd")
+# Discrete choices (the cloud-base level klcl; the PBL top z_pbl where a
+# scheme picks it from a level) jump where float32 rounding moves a value
+# across a threshold, so they are not held to the 3x rule: the columns where
+# the card's choice differs from the CPU's float32 one (by more than 1e-3 of
+# the value, or 1e-3 where it is below 1) are counted, beside the columns
+# where the CPU's float32 and float64 runs differ, and the card may differ
+# in at most 3x as many columns as the CPU's own count plus one per
+# thousand columns.
+CHOICE_FIELDS = ("klcl", "z_pbl")
+# the start of each ras_bl comparison: the convective one where the scheme
+# acts only in a moist, conditionally unstable column (RAS; the stable-BL
+# variant's shallow convection), the cold start where the surface, warmer
+# than the isothermal air, drives the boundary layer (MY2.5, EDT, entrain)
+RAS_BL_STARTS = {"RAS": "convective", "mellor_yamada": "cold", "edt": "cold",
+                 "entrain": "cold", "stable_bl": "convective"}
+# The new paths' CPU runs (float32 and float64, 3 steps each) are made by
+# CPU_REF_WORKERS worker processes of CPU_REF_THREADS threads, started with
+# the script, so that they run beside the card's earlier phases; the longest
+# (mima_gwd's RRTMG-LW at float64) is submitted first.
+NEW_PATHS = ("mima_gwd", "RAS", "continents_sst", "mellor_yamada", "edt", "entrain",
+             "stable_bl")
+CPU_REF_WORKERS, CPU_REF_THREADS = 2, 2
+# The four boundary-layer variants compare 3 steps with the CPU at T21L25
+# (their timed runs are at T42L25): the CPU's float32 and float64 runs at
+# T42 would take the whole script past 900 s.
+BL_COMPARE_RESOLUTION = "T21"
+RAS_BL_STAGES = {"RAS": ("ras",), "mellor_yamada": ("my25",), "edt": ("edt",),
+                 "entrain": ("entrain",), "stable_bl": ("stable_bl", "shallow_conv")}
+
+
+def _diag_compare_run(model, state, fields, steps=FR_COMPARE_STEPS):
+    """`steps` steps from `state`, the last with the physics diagnostics:
+    the named fields (diag_fields, then the diagnostics, then the state's
+    bucket depth and TKE) as float64 numpy, the columns that convect, and
+    the state."""
+    state = model.run(state, steps - 1)
+    state, diag = model.step_with_diagnostics(state, first=steps == 1)
+    diag = dict(diag, bucket_depth=state.bucket_depth.curr, tke=state.tke)
+    out = {k: diag[k].detach().cpu().numpy().astype(np.float64) for k in fields}
+    conv = (diag["convection_rain"].cpu().numpy() > 0.0 if "convection_rain" in diag
+            else None)
+    return out, conv, state
+
+
+def _choices(gpu, cpu32, cpu64, names):
+    """CHOICE_FIELDS' differing columns, card against CPU float32 and CPU
+    float32 against float64; ok when within the rule."""
+    out, ok = {}, True
+    for k in names:
+        differ = lambda a, b: int((np.abs(a - b) > 1e-3 * np.maximum(np.abs(b), 1.0)).sum())
+        card, cpu = differ(gpu[k], cpu32[k]), differ(cpu32[k], cpu64[k])
+        allowed = 3 * cpu + max(1, gpu[k].size // 1000)
+        out[k] = {"card_vs_cpu_f32": card, "cpu_f32_vs_f64": cpu, "allowed": allowed,
+                  "columns": int(gpu[k].size), "range": [float(gpu[k].min()),
+                                                         float(gpu[k].max())]}
+        ok = ok and card <= allowed
+    return out, ok
+
+
+def new_path_spec(name):
+    """(build(dtype, device), compared fields, start) of a new path's 3-step
+    comparison: mima_gwd, continents_sst, or one of RAS_BL_STARTS' schemes
+    on frierson_test_case_config(); start(model) is its initial state."""
+    from isca_tpu_torch.models import cases
+    from isca_tpu_torch.models.moist import GreyMoistModel
+
+    cold = lambda model: model.initial_state()
+    if name == "mima_gwd":
+        return (lambda dtype, device: cases.add_mima_series(GreyMoistModel(
+            cases.mima_gwd_config(dtype, transform_precision="highest"), device=device)),
+            MIMA_GWD_FIELDS, cold)
+    if name == "continents_sst":
+        return (lambda dtype, device: continents_model(dtype, device, continents_sst=True),
+                SST_FIELDS, cold)
+    resolution = "T42" if name == "RAS" else BL_COMPARE_RESOLUTION
+    fields = FR_FIELDS + (("klcl",) if name == "RAS" else ("z_pbl",))
+    if name == "mellor_yamada":
+        fields = fields + ("tke",)
+    return (lambda dtype, device: GreyMoistModel(cases.ras_bl_config(
+        dtype, name, resolution=resolution, transform_precision="highest"), device=device),
+        fields, cases.convective_start if RAS_BL_STARTS[name] == "convective" else cold)
+
+
+def cpu_reference(name, threads=CPU_REF_THREADS):
+    """The CPU's float32 and float64 runs of a new path's comparison:
+    {dtype name: (fields, convecting columns)}. Runs in a worker process of
+    `threads` threads beside the card's earlier phases."""
+    import warnings
+
+    torch.set_num_threads(threads)
+    build, fields, start = new_path_spec(name)
+    out = {}
+    with warnings.catch_warnings():
+        # the committed RRTMG-LW k-tables are synthetic and say so
+        warnings.simplefilter("ignore", RuntimeWarning)
+        for dname, dtype in (("float32", torch.float32), ("float64", torch.float64)):
+            model = build(dtype, "cpu")
+            out[dname] = _diag_compare_run(model, start(model), fields)[:2]
+    return out
+
+
+def _new_path_compare(name, cpu_ref):
+    """3 steps of a new path on the card against the CPU's (cpu_ref: a
+    future of cpu_reference(name)) from the same start: the continuous
+    fields by the 3x rule, CHOICE_FIELDS by the discrete-choice rule, and
+    convection flips counted. Raises when either rule fails; returns
+    (report, the card's state, its model)."""
+    from isca_tpu_torch.physics import rrtmg_sw
+
+    build, fields, start = new_path_spec(name)
+    cont = tuple(k for k in fields if k not in CHOICE_FIELDS)
+    choice = tuple(k for k in fields if k in CHOICE_FIELDS)
+    t0 = time.perf_counter()
+    cpu = cpu_ref.result()
+    wait_s = time.perf_counter() - t0
+    model = build(torch.float32, None)
+    torch.cuda.synchronize()
+    rrtmg_sw.sw_flux_solve.launches = 0
+    gpu, gpu_conv, state = _diag_compare_run(model, start(model), fields)
+    compare, ok = gap_compare(gpu, cpu["float32"][0], cpu["float64"][0], FR_TOL_FACTOR, cont)
+    choices, ok_c = _choices(gpu, cpu["float32"][0], cpu["float64"][0], choice)
+    flips = None
+    if gpu_conv is not None:
+        flips = {"card_vs_cpu_f32": int((gpu_conv != cpu["float32"][1]).sum()),
+                 "cpu_f32_vs_f64": int((cpu["float32"][1] != cpu["float64"][1]).sum()),
+                 "convecting_columns_cpu_f64": int(cpu["float64"][1].sum())}
+    if not (ok and ok_c):
+        raise RuntimeError(f"{name}: card and CPU runs disagree after {FR_COMPARE_STEPS} "
+                           f"steps: {compare}; choices {choices}; convection flips {flips}")
+    return {"compare_steps": FR_COMPARE_STEPS, "tolerance_factor": FR_TOL_FACTOR,
+            "compare": compare, "choices": choices, "convection_flips": flips,
+            "cpu_reference_wait_s": wait_s}, state, model
+
+
+def _new_path_timed(name, model, state, stages, runs_n=FR_TIMED_RUNS):
+    """NEW_WARMUP_STEPS warm-up steps from the test case's cold start, runs_n
+    timed NEW_TIMED_STEPS-step runs, peak memory, 2 profiled steps. Returns
+    the report and sw_flux's count before the profile."""
+    from isca_tpu_torch.physics import rrtmg_sw
+
+    state, warmup_s, runs = _timed_runs(model, state, NEW_WARMUP_STEPS, NEW_TIMED_STEPS,
+                                        runs_n)
+    torch.cuda.synchronize()
+    launches = rrtmg_sw.sw_flux_solve.launches
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    ms_per_step = statistics.median(runs)
+    t_range = _gcm_valid(name, model, state)
+    kernels, device_ms, stage_rows, _ = profile_stages(model, state, MOIST_STAGES + stages)
+    core = model.config.core
+    return {"warmup_steps": NEW_WARMUP_STEPS, "warmup_s": warmup_s, "timed_runs": runs_n,
+            "steps_per_run": NEW_TIMED_STEPS, "ms_per_step_runs": runs,
+            "ms_per_step_median": ms_per_step,
+            "value": core.dt / (ms_per_step * 1e-3), "unit": "model-days/day (one GPU)",
+            "t_range": t_range, "peak_memory_mb": peak_mb, "profile_steps": 2,
+            "device_ms_per_step": device_ms,
+            "launches_per_step": sum(e.count for e in kernels) / 2,
+            "idle_share": 1.0 - device_ms / ms_per_step, "stages": stage_rows}, launches
+
+
+def phase_mima_gwd(cpu_refs):
+    """MiMA with mima.nml's damping, the convective gravity-wave drag and
+    seeded ozone and q-flux series (cases.mima_gwd_config) at T42L25:
+    3 steps against the CPU, timed runs, sw_flux once per step. Returns the
+    path's sw_flux launches."""
+    import warnings
+
+    t_phase = time.perf_counter()
+    with warnings.catch_warnings():
+        # the committed RRTMG-LW k-tables are synthetic and say so
+        warnings.simplefilter("ignore", RuntimeWarning)
+        report, state, model = _new_path_compare("mima_gwd", cpu_refs["mima_gwd"])
+    if model.physics.radiation.lw_rrtmg is None or model.physics.cg_drag is None:
+        raise RuntimeError("mima_gwd: RRTMG-LW or the convective drag is not on the path")
+    state = model.initial_state()
+    timed, launches = _new_path_timed("mima_gwd", model, state, ("rrtmg_lw", "cg_drag"))
+    steps = FR_COMPARE_STEPS + NEW_WARMUP_STEPS + FR_TIMED_RUNS * NEW_TIMED_STEPS
+    if launches != steps:
+        raise RuntimeError(f"mima_gwd: sw_flux launched {launches} times in {steps} steps, "
+                           "expected one per step")
+    o3 = model.physics.radiation.o3_field
+    core, T = model.config.core, model.core.T
+    emit({"phase": "mima_gwd", "model": "mima_test_case + mima.nml damping + cg_drag + "
+          "ozone and q-flux series", "resolution": core.resolution,
+          "grid": [T.nlat, T.nlon], "levels": core.num_levels, "dt": core.dt,
+          "dtype": str(core.dtype), "transform_precision": core.transform_precision,
+          "width": "full: mima_test_case.py's T42L25; nothing cut", **report,
+          "metric": "mima_gwd_T42L25_model_days_per_day", **timed,
+          "o3_range": [float(o3.min()), float(o3.max())],
+          "sw_flux_launches": launches, "steps": steps,
+          "phase_seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+def phase_continents_sst(cpu_refs):
+    """The realistic continents with prescribed ocean SSTs, sea ice and the
+    orographic drag at T42L25: 3 steps against the CPU, the ocean pinned to
+    the SST series and the land not, timed runs. Returns its sw_flux
+    launches."""
+
+    t_phase = time.perf_counter()
+    report, state, model = _new_path_compare("continents_sst", cpu_refs["continents_sst"])
+    land = (model.land_mask > 0.5).cpu().numpy()
+    sst = model.physics.sst_series.at(state.time_seconds - model.config.core.dt)
+    gap = (state.t_surf - sst).abs().cpu().numpy()
+    pinned = {"ocean_max_abs_k": float(gap[~land].max()), "land_max_abs_k": float(gap[land].max())}
+    if pinned["ocean_max_abs_k"] > 1e-3 or pinned["land_max_abs_k"] < 0.1:
+        raise RuntimeError(f"continents_sst: the ocean is not pinned to the SSTs or the land "
+                           f"is: {pinned}")
+    timed, launches = _new_path_timed("continents_sst", model, model.initial_state(),
+                                      ("mg_drag",))
+    if launches:
+        raise RuntimeError(f"continents_sst: sw_flux launched {launches} times off its path")
+    core, T = model.config.core, model.core.T
+    emit({"phase": "continents_sst", "model": "realistic_continents + do_sc_sst "
+          "(ocean only) + sea-ice albedo + mg_drag", "resolution": core.resolution,
+          "grid": [T.nlat, T.nlon], "levels": core.num_levels, "dt": core.dt,
+          "dtype": str(core.dtype), "land_fraction": float(land.mean()),
+          "width": "full: realistic_continents_test_case.py's T42L25; nothing cut",
+          **report, "t_surf_minus_sst": pinned,
+          "metric": "continents_sst_T42L25_model_days_per_day", **timed,
+          "sw_flux_launches": launches, "phase_seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+def phase_ras_bl(cpu_refs):
+    """frierson_test_case_config() with RAS (3 steps against the CPU, three
+    timed runs), then with simple Betts-Miller and each of the MY2.5, EDT,
+    entrain and stable-BL (with shallow convection) schemes (3 steps against
+    the CPU at BL_COMPARE_RESOLUTION, one timed run at T42L25), each
+    profiled. Returns their sw_flux launches."""
+    from isca_tpu_torch.models import cases
+    from isca_tpu_torch.models.moist import GreyMoistModel
+
+    total = 0
+    for scheme in RAS_BL_STARTS:
+        t_phase = time.perf_counter()
+        report, state, model = _new_path_compare(f"{scheme}", cpu_refs[scheme])
+        if scheme != "RAS":
+            model = GreyMoistModel(cases.ras_bl_config(torch.float32, scheme,
+                                                       transform_precision="highest"))
+        timed, launches = _new_path_timed(
+            f"ras_bl {scheme}", model, model.initial_state(), RAS_BL_STAGES[scheme],
+            FR_TIMED_RUNS if scheme == "RAS" else 1)
+        if launches:
+            raise RuntimeError(f"ras_bl {scheme}: sw_flux launched {launches} times off "
+                               "its path")
+        total += launches
+        core = model.config.core
+        stem = "ras" if scheme == "RAS" else f"frierson_{scheme}"
+        emit({"phase": "ras_bl", "scheme": scheme, "model": "frierson_test_case with "
+              + ("RAS" if scheme == "RAS" else f"bl_scheme={scheme}"
+                 + (" + shallow_conv" if scheme == "stable_bl" else "")),
+              "resolution": core.resolution, "levels": core.num_levels, "dt": core.dt,
+              "dtype": str(core.dtype), "compare_start": RAS_BL_STARTS[scheme],
+              "compare_resolution": ("T42" if scheme == "RAS" else BL_COMPARE_RESOLUTION)
+              + "L25",
+              "width": "full: frierson_test_case.py's T42L25; nothing cut", **report,
+              "metric": f"{stem}_T42L25_model_days_per_day", **timed,
+              "sw_flux_launches": launches, "phase_seconds": time.perf_counter() - t_phase})
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -1652,6 +1952,18 @@ def main():
     t0 = time.perf_counter()
     reports = _build.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "reports": reports})
+    pool = ProcessPoolExecutor(max_workers=CPU_REF_WORKERS,
+                               mp_context=multiprocessing.get_context("spawn"))
+    try:
+        cpu_refs = {name: pool.submit(cpu_reference, name) for name in NEW_PATHS}
+        return _run_phases(kind, smi, cpu_refs)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def _run_phases(kind, smi, cpu_refs):
+    """Every phase after the build, in order; the kernels summary, the
+    nvidia-smi line and the last line."""
     cases = phase_kernels()
     launches, model, state, ms_per_step = phase_slice()
     phase_profile(model, state, ms_per_step)
@@ -1663,6 +1975,9 @@ def main():
     mima_launches = {"mima": phase_mima(), "mima_dt_rad": phase_mima_dt_rad()}
     cloud_launches = {name: phase_cloud_gcm(name) for name in CLOUD_PHASES}
     new_paths = {**phase_simple(), **phase_giant(), **phase_moist_land()}
+    new_paths.update(mima_gwd=phase_mima_gwd(cpu_refs),
+                     continents_sst=phase_continents_sst(cpu_refs),
+                     ras_bl=phase_ras_bl(cpu_refs))
     exp_launches = phase_experiment(hs_model, hs_ms, fr_model, fr_ms)
     main_case = cases[0]                      # the main path's shape and variant
     emit({"kernels": [{

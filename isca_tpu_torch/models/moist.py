@@ -5,15 +5,16 @@ Port of isca_tpu/models/moist.py. Reference composition: GreyCodeBase
 with two-stream grey radiation (or RRTM: RRTMG-SW with RRTMG-LW or grey LW,
 or SOCRATES; optionally every `dt_rad` seconds, and with SimCloud or SPOOKIE
 clouds feeding RRTM's or SOCRATES' cloud optics), simple or full
-Betts-Miller convection,
-large-scale condensation, Monin-Obukhov surface fluxes, K-profile
-boundary layer, an optional upper Rayleigh sponge, and a slab ocean; specific
+Betts-Miller or RAS convection, large-scale condensation, Monin-Obukhov
+surface fluxes, the K-profile, MY2.5, EDT, entrain or stable-BL boundary
+layer (with optional shallow convection), the upper-atmosphere damping
+(Rayleigh sponge and the orographic and convective gravity-wave drags), and
+a slab ocean with optional SST, sea-ice, q-flux and ozone series; specific
 humidity as a grid tracer (van Leer + PPM vertical), with the
 water-conservation fixer. A run is a Python loop of eager steps.
 
 Land (`set_land`: a land mask and surface height) and the Manabe bucket
-hydrology (`bucket=True`) are ported; the physics driver raises for its
-unported schemes.
+hydrology (`bucket=True`) are ported. MY2.5's TKE is part of the state.
 
 Matches exp/test_cases/frierson/frierson_test_case.py defaults.
 """
@@ -73,7 +74,7 @@ class GreyMoistState:
     t_surf: torch.Tensor
     time_seconds: torch.Tensor   # 0-d float32 model time (s) for seasonal insolation
     bucket_depth: TwoLevel       # (lat, lon) water depth (m); constant unless bucket
-    tke: torch.Tensor            # (lat, lon, L+1) MY2.5 TKE (zeros; MY2.5 not ported)
+    tke: torch.Tensor            # (lat, lon, L+1) MY2.5 TKE (zeros when unused)
     rad_cache: RadCache          # stored radiation for dt_rad substepping (age on the host)
 
 
@@ -86,6 +87,10 @@ class GreyMoistModel:
         self.core = PrimitiveCore(config.core, tracer_attrs=attrs, device=device)
         self.device = self.core.device
         self.physics = MoistPhysics(config.physics, self.core.T.lats, self.core.T.lons)
+        if config.physics.do_damping and config.physics.damping.do_cg_drag:
+            ph = (self.core.pk.cpu().numpy()
+                  + self.core.bk.cpu().numpy() * config.core.reference_sea_level_press)
+            self.physics.init_cg_drag(0.5 * (ph[:-1] + ph[1:]))
         self.surf_geopotential = torch.zeros(self.core.T.grid_shape, dtype=config.core.dtype,
                                              device=self.device)
         self.land_mask = None   # optional (lat, lon) float mask

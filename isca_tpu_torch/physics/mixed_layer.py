@@ -69,6 +69,11 @@ class MixedLayerConfig:
     albedo_cntr: float = 45.0
     albedo_wdth: float = 10.0
     lat_glacier: float = 60.0
+    # ice albedo from a sea-ice concentration field (mixed_layer.F90:130-134)
+    update_albedo_from_ice: bool = False
+    ice_albedo_value: float = 0.7
+    ice_concentration_threshold: float = 0.5
+    ice_albedo_method: str = "step_function"   # or 'ramp_function'
     do_warmpool: bool = False
     warmpool_amp: float = 5.0
     warmpool_width: float = 20.0
@@ -149,6 +154,18 @@ def surface_albedo(cfg: MixedLayerConfig, lats, land_mask=None):
         albedo = a0 + (a1 - a0) * 0.5 * (
             1.0 + torch.tanh((torch.abs(lat_deg) - cfg.albedo_cntr) / cfg.albedo_wdth))
     return albedo
+
+
+def albedo_with_ice(cfg: MixedLayerConfig, albedo_initial, ice_concentration):
+    """Ice-modified albedo (mixed_layer.F90 albedo_calc): step_function sets
+    ice_albedo_value where concentration > threshold; ramp_function blends."""
+    if cfg.ice_albedo_method == "ramp_function":
+        return (albedo_initial * (1.0 - ice_concentration)
+                + cfg.ice_albedo_value * ice_concentration)
+    if cfg.ice_albedo_method != "step_function":
+        raise ValueError(f"invalid ice_albedo_method {cfg.ice_albedo_method!r}")
+    return torch.where(ice_concentration > cfg.ice_concentration_threshold,
+                       torch.full_like(albedo_initial, cfg.ice_albedo_value), albedo_initial)
 
 
 def heat_capacity_field(cfg: MixedLayerConfig, lons, lats, land_mask=None, zsurf=None):

@@ -1,29 +1,33 @@
-"""Idealized moist physics driver (Frierson grey-radiation tier, RRTM radiation).
+"""Idealized moist physics driver (Frierson grey-radiation tier and beyond).
 
 Port of isca_tpu/physics/moist_driver.py (reference:
-src/atmos_spectral/driver/solo/idealized_moist_phys.F90:819-1395) for the
-branches the single-column RRTM configuration takes. Sequencing: convection
--> large-scale condensation -> radiation down-sweep -> surface fluxes ->
-radiation up-sweep -> boundary-layer diffusivities -> vertical-diffusion
-down-sweep -> mixed-layer implicit surface energy balance -> vertical-diffusion
-up-sweep.
+src/atmos_spectral/driver/solo/idealized_moist_phys.F90:819-1395).
+Sequencing: convection -> large-scale condensation -> radiation down-sweep
+-> surface fluxes -> radiation up-sweep -> boundary-layer diffusivities ->
+vertical-diffusion down-sweep -> mixed-layer implicit surface energy balance
+-> vertical-diffusion up-sweep.
 
-Ported: simple and full Betts-Miller, dry or no convection, large-scale
+Every branch of isca_tpu's driver is ported: simple and full Betts-Miller,
+relaxed Arakawa-Schubert (RAS), dry or no convection, large-scale
 condensation, SimCloud or SPOOKIE diagnostic clouds, grey two-stream, RRTM
 (RRTMG-SW with RRTMG-LW or grey LW) or SOCRATES radiation (the clouds feed
 RRTM's and SOCRATES' cloud optics), every step or every `dt_rad` seconds
-(substepping), bulk surface fluxes over ocean and land (with the Manabe bucket's evaporation
-limit, `bucket=True`, whose depth the GCM leapfrogs from `dt_bucket`), the
-giant-planet lower boundary (interior heat flux and Rayleigh bottom drag,
-no surface fluxes), the upper-atmosphere damping (Rayleigh sponge and
-constant drag), the K-profile diffusivity, vertical diffusion and the slab
-mixed layer with its land options. A land mask and surface height are
-attached by the model (`land_mask`, `zsurf`), and a CO2 series by the user
-(`co2_series`). Every other scheme and option raises NotImplementedError
-when the driver is built: RAS, the gravity-wave drags, the other
-boundary-layer schemes, shallow convection; the SST, sea-ice, q-flux and
-ozone series raise when the driver is called. The keyword input of MY2.5
-(`tke`) is accepted so that the GCM calls both packages' drivers alike.
+(substepping), bulk surface fluxes over ocean and land (with the Manabe
+bucket's evaporation limit, `bucket=True`, whose depth the GCM leapfrogs
+from `dt_bucket`), the giant-planet lower boundary (interior heat flux and
+Rayleigh bottom drag, no surface fluxes), the upper-atmosphere damping
+(Rayleigh sponge, orographic and convective gravity-wave drags, constant
+drag), the K-profile diffusivity or the MY2.5, EDT, entrain and stable-BL
+schemes with optional shallow convection, vertical diffusion and the slab
+mixed layer with its land options. A land mask, surface height and
+subgrid-orography height (`hprime`) are attached by the model, the
+convective-drag tables by `init_cg_drag`, and time series by the user:
+`co2_series`, `sst_series` (prescribed SSTs, `do_sc_sst`), `ice_series`
+(sea-ice albedo, `update_albedo_from_ice`), `qflux_series` (ocean q-flux)
+and `o3_series` (an ozone PressureTimeSeries for RRTM or SOCRATES). A
+series must lie on the model's device. Only `do_topo_drag` raises
+NotImplementedError, as the reference's FATAL stub does. MY2.5's TKE is
+model state, passed in as `tke` and returned in the diagnostics.
 
 Prognostic fields are taken at the `previous` time level, pressures/heights
 at `current`. The mixed layer advances with dt_real (not the leapfrog 2*dt).
@@ -41,6 +45,12 @@ from torch.profiler import record_function
 
 from isca_tpu_torch.constants import Constants, EARTH
 from isca_tpu_torch.physics.betts_miller import BettsMiller, BettsMillerConfig
+from isca_tpu_torch.physics.bl_schemes import (
+    ShallowConvConfig,
+    StableBLConfig,
+    shallow_conv,
+    stable_bl_turb,
+)
 from isca_tpu_torch.physics.cloud_simple import (
     CloudSimple,
     CloudSimpleConfig,
@@ -55,6 +65,9 @@ from isca_tpu_torch.physics.damping_driver import (
 )
 from isca_tpu_torch.physics.diffusivity import DiffusivityConfig, diffusivity
 from isca_tpu_torch.physics.dry_convection import DryConvectionConfig, dry_convection
+from isca_tpu_torch.physics.edt import EDTConfig, edt
+from isca_tpu_torch.physics.entrain import EntrainConfig, entrain
+from isca_tpu_torch.physics.gravity_wave_drag import CgDrag
 from isca_tpu_torch.physics.giant_planet import (
     GiantPlanetConfig,
     gp_surface_flux,
@@ -63,16 +76,19 @@ from isca_tpu_torch.physics.giant_planet import (
 from isca_tpu_torch.physics.lscale_cond import LscaleCond, LscaleCondConfig
 from isca_tpu_torch.physics.mixed_layer import (
     MixedLayerConfig,
+    albedo_with_ice,
     analytic_qflux,
     heat_capacity_field,
     mixed_layer_step,
     surface_albedo,
     warmpool_qflux,
 )
+from isca_tpu_torch.physics.my25_turb import MY25Config, my25_turb
 from isca_tpu_torch.physics.qe_moist_convection import (
     QEMoistConvection,
     QEMoistConvectionConfig,
 )
+from isca_tpu_torch.physics.ras import RAS, RASConfig
 from isca_tpu_torch.physics.sat_vapor_pres import SatVaporPres
 from isca_tpu_torch.physics.surface_flux import SurfaceFluxConfig, surface_flux
 from isca_tpu_torch.physics.two_stream_gray import TwoStreamConfig, TwoStreamGray
@@ -81,7 +97,7 @@ from isca_tpu_torch.physics.vert_diff import gcm_vert_diff_down, gcm_vert_diff_u
 
 @dataclasses.dataclass(frozen=True)
 class MoistPhysicsConfig:
-    convection_scheme: str = "SIMPLE_BETTS_MILLER"   # | FULL_BETTS_MILLER | NONE | DRY
+    convection_scheme: str = "SIMPLE_BETTS_MILLER"   # | FULL_BETTS_MILLER | RAS | NONE | DRY
     turb: bool = True
     do_damping: bool = False
     mixed_layer_bc: bool = True
@@ -112,12 +128,21 @@ class MoistPhysicsConfig:
     condensation: LscaleCondConfig = LscaleCondConfig(do_simple=False, do_evap=False)
     radiation: TwoStreamConfig = TwoStreamConfig()
     surface: SurfaceFluxConfig = SurfaceFluxConfig()
-    bl_scheme: str = "diffusivity"   # others not ported
+    # vert_turb_driver.F90:103-122 scheme selection: do_diffusivity /
+    # do_mellor_yamada / do_entrain / do_edt / do_stable_bl (+shallow_conv)
+    bl_scheme: str = "diffusivity"   # | "mellor_yamada" (or "my25") | "entrain"
+    #                                | "edt" | "stable_bl"
     bl: DiffusivityConfig = DiffusivityConfig(do_simple=True, frac_inner=0.1)
-    do_shallow_conv: bool = False
+    my25: "MY25Config | None" = None
+    entrain: "EntrainConfig | None" = None
+    edt: "EDTConfig | None" = None
+    stable_bl: "StableBLConfig | None" = None
+    do_shallow_conv: bool = False    # add shallow-convection K to diff_t
+    shallow_conv: "ShallowConvConfig | None" = None
     mixed_layer: MixedLayerConfig = MixedLayerConfig()
     dry_convection: DryConvectionConfig = DryConvectionConfig()
     betts_miller: BettsMillerConfig = BettsMillerConfig()
+    ras: RASConfig = RASConfig()
     damping: DampingDriverConfig = DampingDriverConfig()
     giant: GiantPlanetConfig = GiantPlanetConfig()
     cloud: CloudSimpleConfig = CloudSimpleConfig()
@@ -184,21 +209,17 @@ class MoistPhysicsResult(NamedTuple):
 
 
 def _check_ported(cfg: MoistPhysicsConfig):
-    later = {
-        "convection_scheme": cfg.convection_scheme not in (
-            "SIMPLE_BETTS_MILLER", "FULL_BETTS_MILLER", "NONE", "DRY"),
-        "radiation_scheme": cfg.radiation_scheme.lower() not in (
-            "two_stream", "rrtm", "socrates"),
-        "bl_scheme": cfg.bl_scheme.lower() != "diffusivity",
-        "do_shallow_conv": cfg.do_shallow_conv,
-    }
-    for name, unported in later.items():
-        if unported:
-            raise NotImplementedError(
-                f"MoistPhysicsConfig({name}={getattr(cfg, name)!r}) is not "
-                "ported to isca_tpu_torch yet")
+    if cfg.radiation_scheme.lower() not in ("two_stream", "rrtm", "socrates"):
+        raise NotImplementedError(
+            f"MoistPhysicsConfig(radiation_scheme={cfg.radiation_scheme!r}) is "
+            "not a radiation scheme of isca_tpu_torch")
     if cfg.do_damping:
         check_damping_ported(cfg.damping)
+
+
+def _series_device(series):
+    """The device of a TimeSeries or PressureTimeSeries."""
+    return getattr(series, "series", series).times.device
 
 
 class MoistPhysics:
@@ -211,6 +232,7 @@ class MoistPhysics:
         self.svp = SatVaporPres(constants=self.C, do_simple=config.do_simple_sat)
         self.convection = QEMoistConvection(config.convection, self.svp)
         self.betts_miller = BettsMiller(config.betts_miller, self.svp)
+        self.ras = RAS(config.ras, self.svp)
         self.condensation = LscaleCond(config.condensation, self.svp)
         if config.radiation_scheme.lower() == "rrtm":
             from isca_tpu_torch.physics.rrtm_radiation import RRTMConfig, RRTMRadiation
@@ -237,12 +259,18 @@ class MoistPhysics:
         self.land_mask = None    # optional (nlat, nlon) float mask set by the model
         self.zsurf = None        # optional (nlat, nlon) surface height in m
         self.co2_series = None   # optional TimeSeries of CO2 ppmv
-        # the series hooks of isca_tpu not ported yet (ROADMAP A.5b): setting
-        # one raises when the driver is called
-        self.sst_series = None
-        self.ice_series = None
-        self.qflux_series = None
-        self.o3_series = None
+        self.sst_series = None   # optional TimeSeries of prescribed SSTs (lat, lon)
+        self.ice_series = None   # optional TimeSeries of sea-ice concentration
+        self.qflux_series = None  # optional TimeSeries of ocean q-flux (load_qflux)
+        self.o3_series = None    # optional PressureTimeSeries of ozone mmr
+        self.hprime = torch.zeros_like(self.lat2d)  # subgrid-orography stdev (mg_drag)
+        self.cg_drag = None      # CgDrag instance; see init_cg_drag
+
+    def init_cg_drag(self, pref):
+        """Build the convective-GWD source tables from reference full-level
+        pressures (cg_drag_init needs pref; called by the model after the
+        vertical coordinate exists)."""
+        self.cg_drag = CgDrag(self.config.damping.cg, self.lat2d, pref)
 
     def _clouds(self, p_half, p_full, t, q, z_full, wg_full) -> CloudSimpleResult:
         """SimCloud (ocean where the land mask is at most 0.5) or SPOOKIE."""
@@ -255,6 +283,82 @@ class MoistPhysics:
         return CloudSimpleResult(cf=cf, reff_rad=reff, qcl_rad=qcl,
                                  frac_liq=diag["frac_liq"], diagnostics=diag)
 
+    def _boundary_layer(self, diag, rad, dt_real, u, v, t, q, p_full, p_half,
+                        z_full, z_half, u_star, b_star, tke):
+        """The boundary-layer diffusivities (k_m, k_t) of cfg.bl_scheme
+        (vert_turb_driver.F90:103-142), plus shallow convection's heat K;
+        their diagnostics (z_pbl and the scheme's own) go into `diag`."""
+        cfg, C = self.config, self.C
+        scheme = cfg.bl_scheme.lower()
+        z_surf = z_half[..., -1:]
+        zf_ag, zh_ag = z_full - z_surf, z_half - z_surf
+        if scheme in ("mellor_yamada", "my25"):
+            # MY2.5 branch: prognostic-TKE closure
+            my_cfg = cfg.my25 or MY25Config(grav=C.grav)
+            shape2d = t.shape[:-1]
+            fracland = (self.land_mask if self.land_mask is not None
+                        else torch.zeros(shape2d, dtype=t.dtype, device=t.device))
+            theta = t * (1.0e5 / p_full) ** C.kappa
+            z0 = torch.full(shape2d, cfg.roughness_mom, dtype=t.dtype, device=t.device)
+            if tke is None:
+                tke = torch.zeros(tuple(shape2d) + (t.shape[-1] + 1,), dtype=t.dtype,
+                                  device=t.device)
+            with record_function("my25"):
+                my = my25_turb(my_cfg, dt_real, fracland, p_half, p_full, theta,
+                               u, v, zh_ag, zf_ag, z0, tke, u_star=u_star)
+            km, kt = my.akm, my.akh
+            diag["tke"] = my.tke
+            diag["el0"] = my.el0
+            # PBL top: highest level with TKE above threshold
+            active = my.tke[..., 1:] > 1.0e-3
+            diag["z_pbl"] = torch.amax(torch.where(active, zh_ag[..., 1:], 0.0), dim=-1)
+        elif scheme == "edt":
+            # EDT branch (Grenier-Bretherton TKE)
+            zeros3 = torch.zeros_like(t)
+            with record_function("edt"):
+                r = edt(cfg.edt or EDTConfig(constants=C), rad.tdt_rad - rad.tdt_solar,
+                        u_star, b_star, t, q, zeros3, zeros3, diag.get("cf", zeros3),
+                        u, v, z_full, p_full, z_half, p_half)
+            km, kt = r.k_m, r.k_t
+            diag["z_pbl"] = r.pblh
+            diag["tke_edt"] = r.tke
+        elif scheme == "entrain":
+            # entrain branch (Bretherton closure): base diffusivities from the
+            # K-profile scheme, overwritten inside detected mixed layers
+            base = diffusivity(cfg.bl, t, q, u, v, p_full, p_half, zf_ag, zh_ag,
+                               u_star, b_star)
+            zeros3 = torch.zeros_like(t)
+            with record_function("entrain"):
+                r = entrain(cfg.entrain or EntrainConfig(constants=C),
+                            rad.tdt_rad - rad.tdt_solar,
+                            torch.zeros_like(u_star, dtype=torch.bool),
+                            u_star, b_star, t, q, zeros3, zeros3, diag.get("cf", zeros3),
+                            u, v, z_full, p_full, z_half, p_half, base.k_m, base.k_t)
+            km, kt = r.k_m, r.k_t
+            diag["z_pbl"] = torch.maximum(r.zsml, r.zradtop)
+            diag["wentr_pbl"] = r.wentr_pbl
+        elif scheme == "stable_bl":
+            # stable-BL branch (Louis/MO local K)
+            with record_function("stable_bl"):
+                r = stable_bl_turb(cfg.stable_bl or StableBLConfig(constants=C), self.lat2d,
+                                   t, q, u, v, zf_ag, zh_ag, u_star, b_star)
+            km, kt = r.akm, r.akh
+            diag["z_pbl"] = r.z_sbl
+        else:
+            bl = diffusivity(cfg.bl, t, q, u, v, p_full, p_half, zf_ag, zh_ag,
+                             u_star, b_star)
+            km, kt = bl.k_m, bl.k_t
+            diag["z_pbl"] = bl.h_pbl
+
+        if cfg.do_shallow_conv:
+            # shallow_conv adds to the heat K (vert_turb_driver.F90:103)
+            with record_function("shallow_conv"):
+                akhsc, _ = shallow_conv(cfg.shallow_conv or ShallowConvConfig(constants=C),
+                                        self.svp, t, q, p_full, p_half)
+            kt = kt + akhsc
+            diag["akhsc"] = akhsc
+        return km, kt
+
     def __call__(
         self,
         delta_t, dt_real,
@@ -266,22 +370,19 @@ class MoistPhysics:
         t_surf,
         gmt=0.0, time_since_ae=0.0,
         bucket_depth=None,      # (lat, lon) at `current` when cfg.bucket
-        time_seconds=0.0,       # model time (constant drag, CO2 series)
+        time_seconds=0.0,       # model time for time-varying inputs
         wg_full=None,           # (..., L) pressure velocity for SimCloud
-        tke=None,               # (..., L+1); feeds MY2.5 (not ported)
+        tke=None,               # (..., L+1) MY2.5 TKE state when bl_scheme
         rad_cache=None,         # RadCache for dt_rad substepping
     ) -> MoistPhysicsResult:
         cfg, C = self.config, self.C
-        for name in ("sst_series", "ice_series", "qflux_series", "o3_series"):
-            if getattr(self, name) is not None:
-                raise NotImplementedError(
-                    f"MoistPhysics.{name} is not ported to isca_tpu_torch yet "
-                    "(ROADMAP A.5b)")
-        if self.co2_series is not None and self.co2_series.times.device != t_prev.device:
-            # at() would move the model time to the series' device every step
-            raise ValueError(
-                f"MoistPhysics.co2_series lies on {self.co2_series.times.device}, the "
-                f"model on {t_prev.device}: build the series on the model's device")
+        for name in ("co2_series", "sst_series", "ice_series", "qflux_series", "o3_series"):
+            series = getattr(self, name)
+            if series is not None and _series_device(series) != t_prev.device:
+                # at() would move the model time to the series' device every step
+                raise ValueError(
+                    f"MoistPhysics.{name} lies on {_series_device(series)}, the model "
+                    f"on {t_prev.device}: build the series on the model's device")
         shape2d = t_prev.shape[:-1]
         zero2 = torch.zeros(shape2d, dtype=t_prev.dtype, device=t_prev.device)
         full2 = lambda x: torch.full(shape2d, x, dtype=t_prev.dtype, device=t_prev.device)
@@ -304,6 +405,22 @@ class MoistPhysics:
             conv_rain = conv.rain / delta_t
             depth_change_conv = conv.rain / C.dens_h2o
             diag.update(convection_rain=conv_rain, cape=conv.cape, cin=conv.cin)
+        elif cfg.convection_scheme == "RAS":
+            # Relaxed Arakawa-Schubert (idealized_moist_phys.F90:932)
+            with record_function("ras"):
+                rr = self.ras(delta_t, t_prev, q_prev, u_prev, v_prev,
+                              p_full_prev, p_half_prev,
+                              z_half_curr - z_half_curr[..., -1:])
+            tg_tmp = t_prev + rr.dt_t
+            qg_tmp = q_prev + rr.dt_q
+            dt_t = dt_t + rr.dt_t / delta_t
+            dt_q = dt_q + rr.dt_q / delta_t
+            dt_u = dt_u + rr.dt_u / delta_t
+            dt_v = dt_v + rr.dt_v / delta_t
+            conv_rain = (rr.rain + rr.snow) / delta_t
+            depth_change_conv = rr.rain / C.dens_h2o
+            diag.update(convection_rain=conv_rain, klcl=rr.klcl,
+                        ras_precip_ev=rr.precip_ev / delta_t)
         elif cfg.convection_scheme == "DRY":
             dc = dry_convection(cfg.dry_convection, t_prev, p_full_prev, p_half_prev)
             dt_t = dt_t + dc.dt_tg
@@ -337,6 +454,14 @@ class MoistPhysics:
         # ---- radiation: downward pass ----
         albedo = surface_albedo(cfg.mixed_layer, self.lat2d, self.land_mask).expand(
             shape2d).to(t_prev.dtype)
+        if cfg.mixed_layer.update_albedo_from_ice and self.ice_series is not None:
+            albedo = albedo_with_ice(cfg.mixed_layer, albedo,
+                                     self.ice_series.at(time_seconds))
+            diag["albedo"] = albedo
+        if self.o3_series is not None and hasattr(self.radiation, "o3_field"):
+            # time-varying ozone climatology interpolated onto the current
+            # model pressures (rrtm_radiation.F90 o3 input via interpolator)
+            self.radiation.o3_field = self.o3_series.at(time_seconds, p_full_curr)
         dt_rad_avg = cfg.radiation.dt_rad_avg if cfg.radiation.dt_rad_avg > 0 else dt_real
         dt_rad_radians = dt_rad_avg / C.seconds_per_day * 2.0 * math.pi
         co2 = self.co2_series.at(time_seconds) if self.co2_series is not None else None
@@ -403,11 +528,14 @@ class MoistPhysics:
                 p_half_prev, p_full_prev, dt_u, dt_v, dt_t)
             dt_u, dt_v, dt_t = bd.dt_u, bd.dt_v, bd.dt_t
 
-        # ---- upper-atmosphere damping (Rayleigh sponge, constant drag) ----
+        # ---- upper-atmosphere damping (sponge + mg/cg gravity-wave drag) ----
         if cfg.do_damping:
             dmp = damping_driver(
                 cfg.damping, delta_t, p_full_curr, u_prev, v_prev,
-                dt_u, dt_v, dt_t, lat2d=self.lat2d,
+                dt_u, dt_v, dt_t,
+                temp=t_prev, p_half=p_half_curr,
+                z_full=z_full_curr, z_half=z_half_curr,
+                hprime=self.hprime, cg=self.cg_drag, lat2d=self.lat2d,
                 day_of_year=time_seconds / C.seconds_per_day,
                 days_per_year=C.orbital_period / C.seconds_per_day,
             )
@@ -420,17 +548,15 @@ class MoistPhysics:
 
         # ---- boundary-layer diffusivities ----
         u_star, b_star = (sf.u_star, sf.b_star) if sf is not None else (zero2, zero2)
-        bl = diffusivity(
-            cfg.bl, t_prev, q_prev, u_prev, v_prev,
-            p_full_curr, p_half_curr, z_full_curr - z_surf[..., None],
-            z_half_curr - z_surf[..., None], u_star, b_star)
-        diag["z_pbl"] = bl.h_pbl
+        bl_km, bl_kt = self._boundary_layer(
+            diag, rad, dt_real, u_prev, v_prev, t_prev, q_prev, p_full_curr, p_half_curr,
+            z_full_curr, z_half_curr, u_star, b_star, tke)
 
         # ---- vertical diffusion down / mixed layer / up ----
         down = gcm_vert_diff_down(
             C, delta_t,
             u_prev, v_prev, t_prev, q_prev,
-            bl.k_m, bl.k_t,
+            bl_km, bl_kt,
             p_half_curr, p_full_curr, z_full_curr,
             sf.flux_u if sf is not None else zero2,
             sf.flux_v if sf is not None else zero2,
@@ -442,17 +568,27 @@ class MoistPhysics:
         dt_u, dt_v = down.dt_u, down.dt_v
 
         if cfg.mixed_layer_bc and sf is not None:
-            heat_capacity = heat_capacity_field(cfg.mixed_layer, self.lon2d, self.lat2d,
+            C_ml = cfg.mixed_layer
+            heat_capacity = heat_capacity_field(C_ml, self.lon2d, self.lat2d,
                                                 land_mask=self.land_mask, zsurf=self.zsurf)
+            ocean_qflux = (self.qflux_series.at(time_seconds)
+                           if self.qflux_series is not None else self.ocean_qflux)
+            if (C_ml.update_albedo_from_ice and self.qflux_series is not None
+                    and self.land_mask is not None):
+                # time-varying q-flux is zeroed over land/ice points
+                # (mixed_layer.F90:659-666)
+                ocean_qflux = torch.where(self.land_mask > 0.5, 0.0, ocean_qflux)
             ml = mixed_layer_step(
                 cfg.mixed_layer, dt_real, t_surf, down.tri,
                 sf.flux_t, sf.flux_q, sf.flux_r,
                 rad.net_surf_sw_down, rad.surf_lw_down,
                 sf.dhdt_surf, sf.dedt_surf, sf.dedq_surf, sf.drdt_surf,
                 sf.dhdt_atm, sf.dedq_atm,
-                ocean_qflux=self.ocean_qflux,
+                ocean_qflux=ocean_qflux,
                 heat_capacity=heat_capacity,
                 land_mask=self.land_mask,
+                sst_prescribed=(self.sst_series.at(time_seconds)
+                                if self.sst_series is not None else None),
                 lats=self.lat2d,
             )
             tri = down.tri._replace(delta_t=ml.delta_t, delta_q=ml.delta_q)

@@ -1,4 +1,4 @@
-"""Monin-Obukhov surface-layer similarity: drag coefficients.
+"""Monin-Obukhov surface-layer similarity: drag coefficients and profiles.
 
 Port of isca_tpu/physics/monin_obukhov.py (reference:
 src/atmos_param/monin_obukhov/monin_obukhov_kernel.F90). Businger-Dyer
@@ -145,3 +145,31 @@ def mo_drag(cfg: MOConfig, pt, pt0, z, z0, zt, zq, speed):
     cd_t = us * bs
     cd_q = us * qs
     return cd_m, cd_t, cd_q, us * speed, bs * delta_b
+
+
+def mo_profile(cfg: MOConfig, zref_m, zref_t, z, z0, zt, zq, u_star, b_star):
+    """Interpolation factors (del_m, del_t, del_q) for 10m/2m diagnostics."""
+    ln_z_z0 = torch.log(z / z0)
+    ln_z_zt = torch.log(z / zt)
+    ln_z_zq = torch.log(z / zq)
+    ln_z_zrm = torch.log(z / zref_m)
+    ln_z_zrt = torch.log(z / zref_t)
+    if cfg.neutral:
+        return (
+            1.0 - ln_z_zrm / ln_z_z0,
+            1.0 - ln_z_zrt / ln_z_zt,
+            1.0 - ln_z_zrt / ln_z_zq,
+        )
+    mo_inv = torch.where(u_star > 0, -cfg.vonkarm * b_star / (u_star * u_star), 0.0)
+    zeta = z * mo_inv
+    f_m = _psi_m_integral(cfg, zeta, z0 * mo_inv, ln_z_z0)
+    f_m_ref = _psi_m_integral(cfg, zeta, zref_m * mo_inv, ln_z_zrm)
+    f_t = _psi_t_integral(cfg, zeta, zt * mo_inv, ln_z_zt)
+    f_t_ref = _psi_t_integral(cfg, zeta, zref_t * mo_inv, ln_z_zrt)
+    f_q = _psi_t_integral(cfg, zeta, zq * mo_inv, ln_z_zq)
+    f_q_ref = _psi_t_integral(cfg, zeta, zref_t * mo_inv, ln_z_zrt)
+    return (
+        1.0 - f_m_ref / f_m,
+        1.0 - f_t_ref / f_t,
+        1.0 - f_q_ref / f_q,
+    )

@@ -119,6 +119,7 @@ class RRTMRadiation:
                               grav=C.grav, cp_air=C.cp_air),
                 kg=config.lw_kg_path, device=device)
         self.grey = TwoStreamGray(dataclasses.replace(config.lw, solar_constant=0.0))
+        self.o3_field = None        # optional (..., L) ozone mmr set by the driver
 
     def down(self, lat, lon, p_half, t, q, albedo, gmt=0.0, time_since_ae=0.0,
              dt_rad_avg=None, carbon_conc=None, cloud_fields=None) -> RadDownResult:
@@ -139,7 +140,7 @@ class RRTMRadiation:
         coszen = coszen * frac      # mean cos over the averaging window
         coszen_full = coszen
 
-        o3 = torch.full_like(t, cfg.o3_mmr)
+        o3 = self.o3_field if self.o3_field is not None else torch.full_like(t, cfg.o3_mmr)
         if cfg.do_zm_tracers:
             q = torch.mean(q, dim=1, keepdim=True).expand(q.shape)
 

@@ -445,6 +445,7 @@ class SocratesRadiation:
         self._solar_frac = on(self.sw_spec.solar_frac)
         self._coeffs = {name: (on(spec.drop_coeffs), on(spec.ice_coeffs))
                         for name, spec in (("sw", self.sw_spec), ("lw", self.lw_spec))}
+        self.o3_field = None          # optional (..., L) mmr set by the driver
 
     def _as(self, x):
         return torch.as_tensor(x, dtype=self.dtype, device=self.device)
@@ -459,7 +460,7 @@ class SocratesRadiation:
         if cfg.inc_co2:
             mmr[IP_CO2] = vmr2mmr(IP_CO2, co2_vmr)
         if cfg.inc_o3 and cfg.account_for_effect_of_ozone:
-            mmr[IP_O3] = cfg.o3_mmr
+            mmr[IP_O3] = self.o3_field if self.o3_field is not None else cfg.o3_mmr
         if cfg.inc_n2o:
             mmr[IP_N2O] = cfg.n2o_mix_ratio
         if cfg.inc_ch4:

@@ -8,11 +8,17 @@ kernel launch. The plain PyTorch version of a hand-written kernel counts
 as the one launch its kernel makes. The count does not depend on the width,
 so a small resolution predicts the full-width one; it does depend on the
 number of levels (the column schemes loop over them), which is kept. Prints
-one JSON line: the calls per step, and those inside the "physics",
-"rrtmg_lw", "socrates" and "cloud_simple" profiler ranges. The models are
-the test cases' configurations: frierson, mima (and mima_dt_rad, with
-MiMA's dt_rad = 7200 s), socrates and socrates_cloud (the SOCRATES
-aquaplanet without and with --clouds) and simple_clouds.
+one JSON line: the calls per step, and those inside the profiler ranges
+of RANGES ("physics", the radiation and cloud schemes, the drags and the
+convection and boundary-layer schemes). The models are the test cases'
+configurations: frierson, mima (and mima_dt_rad, with MiMA's dt_rad =
+7200 s), socrates and socrates_cloud (the SOCRATES aquaplanet without and
+with --clouds) and simple_clouds; and the configurations of
+isca_tpu_torch/models/cases.py: mima_gwd (MiMA with its damping, the
+convective gravity-wave drag and seeded ozone and q-flux series),
+continents_sst (realistic continents with prescribed SSTs, sea ice and the
+orographic drag), ras (Frierson with RAS) and my25, edt, entrain and
+stable_bl (Frierson with that boundary-layer scheme).
 """
 
 from __future__ import annotations
@@ -77,13 +83,25 @@ def _ranges(counter, names):
     return (enter, exit_), (on_enter, on_exit)
 
 
-MODELS = ("frierson", "mima", "mima_dt_rad", "socrates", "socrates_cloud", "simple_clouds")
-RANGES = {"physics", "rrtmg_lw", "socrates", "cloud_simple"}
+MODELS = ("frierson", "mima", "mima_dt_rad", "socrates", "socrates_cloud", "simple_clouds",
+          "mima_gwd", "continents_sst", "ras", "my25", "edt", "entrain", "stable_bl")
+RANGES = {"physics", "rrtmg_lw", "socrates", "cloud_simple", "cg_drag", "mg_drag", "ras",
+          "my25", "edt", "entrain", "stable_bl", "shallow_conv"}
 
 
 def build(name, resolution):
-    from isca_tpu_torch.models import moist
+    from isca_tpu_torch.models import cases, moist
 
+    if name == "mima_gwd":
+        return cases.add_mima_series(moist.GreyMoistModel(
+            cases.mima_gwd_config(resolution=resolution), device="cpu"))
+    if name == "continents_sst":
+        return cases.set_continents(moist.GreyMoistModel(
+            cases.continents_config(continents_sst=True, resolution=resolution), device="cpu"))
+    if name in ("ras", "my25", "edt", "entrain", "stable_bl"):
+        scheme = {"ras": "RAS", "my25": "mellor_yamada"}.get(name, name)
+        return moist.GreyMoistModel(cases.ras_bl_config(scheme=scheme, resolution=resolution),
+                                    device="cpu")
     cfg = {"frierson": moist.frierson_test_case_config,
            "socrates": moist.socrates_aquaplanet_test_case_config,
            "socrates_cloud": lambda: moist.socrates_aquaplanet_test_case_config(True),

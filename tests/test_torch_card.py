@@ -8,7 +8,11 @@ against the CPU) and a stirred barotropic step; RRTMG-LW at T42L25 width
 against the CPU at float64, a step of the MiMA test case, and the radiation
 substepping decision, which reads no CUDA tensor; a cloudy SOCRATES
 aquaplanet step and a simple_clouds step (RRTM with SimCloud) on the card
-against the CPU, and McICA's draws on the card bit for bit against the CPU.
+against the CPU, and McICA's draws on the card bit for bit against the CPU;
+each new column scheme (mg_drag, cg_drag, RAS, MY2.5, shallow convection,
+the stable BL, EDT, entrain) and each new GCM path (MiMA with its drag and
+series, the continents with SSTs and sea ice, RAS and the four
+boundary-layer schemes) at T21 on the card against the CPU at float32.
 Every test here needs a CUDA device and skips without one.
 
 This file imports torch, numpy and isca_tpu_torch only, so it runs where JAX
@@ -518,3 +522,149 @@ def test_mcica_draws_on_card_equal_cpu(dtype):
            for d in ("cpu", "cuda")}
     for a, b in zip(out["cuda"], out["cpu"]):
         assert a.is_cuda and torch.equal(a.cpu(), b)
+
+
+# ---------------------------------------------------------------------------
+# the gravity-wave drags, the series, RAS and the boundary-layer schemes
+# ---------------------------------------------------------------------------
+
+def sounding_columns(ncol=6, L=25, seed=4):
+    """Conditionally unstable moist columns (numpy float64, level-last,
+    top-down): a 6.8 K/km lapse rate from 296-304 K, 85% relative humidity
+    falling off above 3 km, noisy winds, hydrostatic heights."""
+    rng = np.random.default_rng(seed)
+    p_half = np.linspace(20.0e2, 1.0e5, L + 1) * np.ones((ncol, 1))
+    p_full = 0.5 * (p_half[:, 1:] + p_half[:, :-1])
+    z_full = 7600.0 * np.log(1.0e5 / p_full)
+    z_half = 7600.0 * np.log(1.0e5 / p_half)
+    t = np.maximum(rng.uniform(296.0, 304.0, (ncol, 1)) - 6.8e-3 * z_full, 200.0)
+    es = 610.78 * np.exp(17.27 * (t - 273.15) / (t - 35.85))
+    q = 0.85 * 0.622 * es / p_full * np.exp(-np.maximum(z_full - 3000.0, 0.0) / 3000.0)
+    return dict(t=t, q=q, u=rng.normal(5.0, 5.0, t.shape), v=rng.normal(0.0, 5.0, t.shape),
+                p_full=p_full, p_half=p_half, z_full=z_full, z_half=z_half,
+                lat=np.deg2rad(rng.uniform(-70.0, 70.0, ncol)))
+
+
+def scheme_outputs(name, dtype, device):
+    """One call of a new column scheme on `device` at `dtype`, its named
+    outputs as float64 numpy."""
+    from isca_tpu_torch.physics import bl_schemes, edt, entrain, gravity_wave_drag as gwd
+    from isca_tpu_torch.physics import my25_turb, ras
+    from isca_tpu_torch.physics.sat_vapor_pres import SatVaporPres
+
+    c = sounding_columns()
+    on = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+    a = {k: on(v) for k, v in c.items()}
+    ncol, L = c["t"].shape
+    full = lambda x: torch.full((ncol,), x, dtype=dtype, device=device)
+    svp = SatVaporPres(do_simple=True)
+    if name == "mg_drag":
+        res = gwd.mg_drag(gwd.MgDragConfig(do_conserve_energy=True), 1440.0, a["u"], a["v"],
+                          a["t"], a["p_full"], a["p_half"], a["z_full"], a["z_half"],
+                          full(400.0))
+    elif name == "cg_drag":
+        res = gwd.CgDrag(gwd.CgDragConfig(), a["lat"], c["p_full"][0])(
+            a["p_full"], a["z_full"], a["t"], a["u"], a["v"])
+    elif name == "ras":
+        res = ras.RAS(ras.RASConfig(), svp)(1440.0, a["t"], a["q"], a["u"], a["v"],
+                                            a["p_full"], a["p_half"], a["z_half"])
+    elif name == "my25":
+        theta = a["t"] * (1.0e5 / a["p_full"]) ** (2.0 / 7.0)
+        tke = on(np.full((ncol, L + 1), 0.2))
+        res = my25_turb.my25_turb(my25_turb.MY25Config(), 720.0, full(0.3), a["p_half"],
+                                  a["p_full"], theta, a["u"], a["v"], a["z_half"],
+                                  a["z_full"], full(0.05), tke, u_star=full(0.4), iters=3)
+    elif name == "shallow_conv":
+        res = bl_schemes.shallow_conv(bl_schemes.ShallowConvConfig(), svp, a["t"], a["q"],
+                                      a["p_full"], a["p_half"])
+        res = dict(akhsc=res[0], plcl=res[1])
+    elif name == "stable_bl":
+        res = bl_schemes.stable_bl_turb(bl_schemes.StableBLConfig(), a["lat"], a["t"], a["q"],
+                                        a["u"], a["v"], a["z_full"], a["z_half"], full(0.3),
+                                        on(np.linspace(-0.02, 0.02, ncol)))
+    else:
+        zero = torch.zeros_like(a["t"])
+        tdtlw = on(np.where(np.abs(c["z_full"] - 900.0) < 300.0, -5e-4, 0.0))
+        qa = on(np.where(np.abs(c["z_full"] - 900.0) < 600.0, 0.8, 0.0))
+        args = (a["t"], a["q"], zero, zero, qa, a["u"], a["v"], a["z_full"], a["p_full"],
+                a["z_half"], a["p_half"])
+        bstar = on(np.linspace(-0.005, 0.02, ncol))
+        if name == "edt":
+            res = edt.edt(edt.EDTConfig(), tdtlw, full(0.3), bstar, *args)
+        else:
+            res = entrain.entrain(entrain.EntrainConfig(), tdtlw,
+                                  torch.zeros(ncol, dtype=torch.bool, device=device),
+                                  full(0.3), bstar, *args, zero + 0.5, zero + 0.5)
+    items = res.items() if isinstance(res, dict) else zip(res._fields, res)
+    return {k: v.detach().cpu().numpy().astype(np.float64) for k, v in items}
+
+
+@pytest.mark.parametrize("name", ["mg_drag", "cg_drag", "ras", "my25", "shallow_conv",
+                                  "stable_bl", "edt", "entrain"])
+def test_column_scheme_on_card_matches_cpu(name):
+    """Each new column scheme on the card at float32 against the same call on
+    the CPU: every output within 3x the CPU's own float32-versus-float64
+    difference, plus 1e-7 of its largest entry (for an output float32 gets
+    exactly); RAS's cloud-base level exactly."""
+    gpu, cpu32, cpu64 = (scheme_outputs(name, torch.float32, "cuda"),
+                         scheme_outputs(name, torch.float32, "cpu"),
+                         scheme_outputs(name, torch.float64, "cpu"))
+    assert any(np.abs(v).max() > 0 for v in cpu64.values())
+    for k in cpu64:
+        if k == "klcl":
+            assert np.array_equal(gpu[k], cpu32[k])
+            continue
+        gap = np.abs(cpu32[k] - cpu64[k]).max()
+        err = np.abs(gpu[k] - cpu32[k]).max()
+        assert err <= 3.0 * gap + 1e-7 * np.abs(cpu64[k]).max(), (name, k, err, gap)
+
+
+def new_path_model(path, dtype, device):
+    """The new GCM paths cut to T21 (8 levels where the configuration allows
+    it), from isca_tpu_torch/models/cases.py."""
+    from isca_tpu_torch.models import cases, moist
+
+    l8 = dict(resolution="T21", num_levels=8)
+    if path == "mima_gwd":
+        return cases.add_mima_series(moist.GreyMoistModel(
+            cases.mima_gwd_config(dtype, **l8), device=device))
+    if path == "continents_sst":
+        return cases.set_continents(moist.GreyMoistModel(
+            cases.continents_config(dtype, True, **l8), device=device))
+    return moist.GreyMoistModel(cases.ras_bl_config(dtype, path, resolution="T21"),
+                                device=device)
+
+
+@pytest.mark.parametrize("path", ["mima_gwd", "continents_sst", "RAS", "mellor_yamada", "edt",
+                                  "entrain", "stable_bl"])
+def test_new_gcm_path_on_card_matches_cpu(path):
+    """3 steps of each new GCM path at T21 on the card against the CPU at
+    float32 (RAS and the stable-BL scheme from cases.convective_start, the
+    others from the cold start): each field within 3x the CPU's own
+    float32-versus-float64 difference; sw_flux once per step on mima_gwd
+    only; the series, the drag tables and MY2.5's TKE on the card."""
+    from isca_tpu_torch.models import cases
+
+    def fields(dtype, device):
+        model = new_path_model(path, dtype, device)
+        start = (cases.convective_start(model) if path in ("RAS", "stable_bl")
+                 else model.initial_state())
+        before = P.sw_flux_solve.launches
+        state = model.run(start, 3)
+        if device != "cpu":
+            torch.cuda.synchronize()
+            assert P.sw_flux_solve.launches - before == (3 if path == "mima_gwd" else 0)
+            assert state.tke.is_cuda and state.t_surf.is_cuda
+        out = {k: v.cpu().numpy().astype(np.float64)
+               for k, v in model.diag_fields(state).items() if k in FRIERSON_FIELDS}
+        if path == "mellor_yamada":
+            out["tke"] = state.tke.cpu().numpy().astype(np.float64)
+        return out
+
+    gpu, cpu32, cpu64 = (fields(torch.float32, None), fields(torch.float32, "cpu"),
+                         fields(torch.float64, "cpu"))
+    if path == "mellor_yamada":
+        assert gpu["tke"].max() > 0.0
+    for k in cpu64:
+        gap = np.abs(cpu32[k] - cpu64[k]).max()
+        assert np.abs(gpu[k] - cpu32[k]).max() <= 3.0 * gap, k

@@ -23,8 +23,9 @@ Frierson aquaplanet GCM) against the trip goldens and against isca_tpu's.
   zonal-mean wind by 5.7e-8 and the top level's Rayleigh drag (at most
   5.7e-8 m/s^2, on the first steps' weak winds) by 2.8e-7.
 * Restarts written by either package load in the other; the numpy state
-  round trip; the CLI's frierson model; options that are not ported raise
-  (land and the bucket are tested in tests/test_torch_land.py).
+  round trip; the CLI's frierson model; the one option that still raises,
+  the topographic drag (land and the bucket are tested in
+  tests/test_torch_land.py).
 
 One isca_tpu model per configuration is shared through module-scoped
 fixtures; each runs under jax.jit as step functions (one compile for the
@@ -341,22 +342,12 @@ def test_configs_mirror_isca_tpu():
 
 
 def test_unported_options_raise():
+    # every scheme and series hook of the driver is ported (RAS, the
+    # boundary-layer schemes and drags: tests/test_torch_gcm_*.py; the
+    # series: tests/test_torch_series.py) but the topographic drag, a FATAL
+    # stub in the reference
     cfg = config(TORCH, "frierson", torch.float64)
-    for phys in (dict(convection_scheme="RAS"),
-                 dict(do_damping=True, damping=tdd.DampingDriverConfig(do_topo_drag=True)),
-                 dict(do_damping=True, damping=tdd.DampingDriverConfig(do_mg_drag=True)),
-                 dict(do_damping=True, damping=tdd.DampingDriverConfig(do_cg_drag=True)),
-                 dict(bl_scheme="mellor_yamada"), dict(bl_scheme="edt"),
-                 dict(bl_scheme="entrain"), dict(bl_scheme="stable_bl"),
-                 dict(do_shallow_conv=True)):
+    for phys in (dict(do_damping=True, damping=tdd.DampingDriverConfig(do_topo_drag=True)),):
         with pytest.raises(NotImplementedError):
             tmoist.GreyMoistModel(dataclasses.replace(
                 cfg, physics=dataclasses.replace(cfg.physics, **phys)), device="cpu")
-    # the series hooks of the driver are not ported (ROADMAP A.5b)
-    m = tmoist.GreyMoistModel(cfg, device="cpu")
-    state = m.initial_state()
-    for hook in ("sst_series", "ice_series", "qflux_series", "o3_series"):
-        setattr(m.physics, hook, object())
-        with pytest.raises(NotImplementedError, match=hook):
-            m.step(state, first=True)
-        setattr(m.physics, hook, None)

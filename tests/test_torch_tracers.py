@@ -394,7 +394,7 @@ def test_damping_driver_matches(options):
         close(got.diagnostics[k], ref.diagnostics[k], 1e-12, k)
 
 
-@pytest.mark.parametrize("name", ["do_mg_drag", "do_cg_drag", "do_topo_drag"])
+@pytest.mark.parametrize("name", ["do_topo_drag"])
 def test_unported_drags_raise(name):
     x = torch.zeros(2, L, dtype=torch.float64)
     with pytest.raises(NotImplementedError):
