@@ -147,6 +147,21 @@ Phases, each printed as one JSON line:
            range. The cloud-base level klcl and the PBL top z_pbl are
            discrete choices, held by counting the columns whose choice
            differs (CHOICE_FIELDS). sw_flux 0.
+  sharded  the sharded run (isca_tpu_torch.parallel.mesh): 2 ranks spawned
+           on the one card over gloo, which stages its collectives through
+           the host. HS T85L25 and Frierson T42L25 (the `dycore` and `moist`
+           configurations with PrimitiveConfig(mesh=...)), float32, 3 steps
+           sharded from cold start, the gathered fields held by the 3x rule
+           against the CPU runs of `dycore` and `moist` and compared with
+           those phases' 3 card steps on one device; each rank's m rows and
+           its spectral block distinct; an HS tile restart written by both
+           ranks, read back into each rank's blocks and combined into one
+           file, both bit-equal; 10 timed steps (ms per step), then 10 with
+           every all_to_all and all_reduce synchronised and timed (their
+           share of that step). A correctness run on one card, not a
+           scaling number. sw_flux must not launch. With two or more
+           cards the same again over NCCL, one card per rank; with one, a
+           line says so.
 The CPU's float32 and float64 runs that mima_gwd, continents_sst and
 ras_bl compare with are made by two worker processes (two threads each,
 `cpu_reference`), started after the build, so that they run beside the
@@ -169,6 +184,7 @@ import contextlib
 import dataclasses
 import json
 import multiprocessing
+import os
 import statistics
 import subprocess
 import sys
@@ -185,6 +201,9 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 
 SEED = 20261017
+# the card's 3-step fields and the CPU's float32 and float64 fields of the
+# `dycore` and `moist` comparisons, which `sharded` compares with again
+COMPARE_REFS = {}
 
 
 def emit(obj):
@@ -539,6 +558,7 @@ def phase_dycore():
     state = model.run(model.initial_state(), HS_COMPARE_STEPS)
     gpu = hs_fields(model, state)
     compare, ok = gap_compare(gpu, cpu["float32"], cpu["float64"], HS_TOL_FACTOR, HS_FIELDS)
+    COMPARE_REFS["held_suarez"] = (gpu, cpu["float32"], cpu["float64"])
     if not ok:
         raise RuntimeError(f"dycore: card and CPU runs disagree after "
                            f"{HS_COMPARE_STEPS} steps: {compare}")
@@ -705,6 +725,7 @@ def phase_moist():
     gpu, gpu_conv, state = _moist_compare_run(model)
     compare, ok = gap_compare(gpu, cpu["float32"][0], cpu["float64"][0], FR_TOL_FACTOR,
                               FR_FIELDS)
+    COMPARE_REFS["frierson"] = (gpu, cpu["float32"][0], cpu["float64"][0])
     # a convection threshold that flips between two float32 runs shows as a
     # column convecting in one and not the other
     flips = {"card_vs_cpu_f32": int((gpu_conv != cpu["float32"][1]).sum()),
@@ -1939,6 +1960,190 @@ def _experiment_barotropic(tmp, timings):
             "sw_flux_launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# sharded: the port's mesh path, ranks spawned on the card
+# ---------------------------------------------------------------------------
+
+SHARDED_RANKS = 2
+SHARDED_TIMED_STEPS = 10
+SHARDED_MODELS = {"held_suarez": HS_FIELDS, "frierson": FR_FIELDS}
+
+
+def _sharded_model(name, mesh):
+    """The `dycore` or `moist` model at float32 on the mesh."""
+    from isca_tpu_torch.models.dry import HeldSuarezModel
+    from isca_tpu_torch.models.moist import GreyMoistModel
+
+    cfg = hs_config(torch.float32) if name == "held_suarez" else frierson_config(torch.float32)
+    cfg = dataclasses.replace(cfg, core=dataclasses.replace(cfg.core, mesh=mesh))
+    return HeldSuarezModel(cfg) if name == "held_suarez" else GreyMoistModel(cfg)
+
+
+@contextlib.contextmanager
+def _timed_collectives(names=("all_to_all_single", "all_reduce")):
+    """While open, each call of the named torch.distributed functions waits
+    for the card before and for its own end after, and adds its host time
+    to acc[name] = [calls, seconds]."""
+    import torch.distributed as dist
+
+    acc = {n: [0, 0.0] for n in names}
+    originals = {n: getattr(dist, n) for n in names}
+
+    def wrap(name):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            work = originals[name](*args, **kwargs)
+            if work is not None:
+                work.wait()
+            torch.cuda.synchronize()
+            acc[name][0] += 1
+            acc[name][1] += time.perf_counter() - t0
+            return work
+        return timed
+
+    for n in names:
+        setattr(dist, n, wrap(n))
+    try:
+        yield acc
+    finally:
+        for n, f in originals.items():
+            setattr(dist, n, f)
+
+
+def _sharded_steps(model, state, steps):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = model.run(state, steps, first=False)
+    torch.cuda.synchronize()
+    return state, 1e3 * (time.perf_counter() - t0) / steps
+
+
+def sharded_rank(rank, outdir):
+    """One rank of `sharded` (spawned): each model 3 steps on the mesh, its
+    gathered fields (rank 0 writes them), its blocks, the HS tile restart,
+    the timed runs; the rank's report in outdir/rank<r>.json."""
+    import torch.distributed as dist
+    from isca_tpu_torch.io import distributed as dio
+    from isca_tpu_torch.io.restart import load_restart
+    from isca_tpu_torch.parallel.mesh import gather_pytree, make_mesh
+    from isca_tpu_torch.physics import rrtmg_sw
+    from isca_tpu_torch.utils.tree import flatten_with_paths
+
+    mesh = make_mesh(SHARDED_RANKS)
+    report = {"rank": rank, "device": str(mesh.device), "backend": mesh.backend}
+    for name, fields in SHARDED_MODELS.items():
+        model = _sharded_model(name, mesh)
+        T = model.core.T
+        state = model.run(model.initial_state(), HS_COMPARE_STEPS)
+        got = gather_pytree(mesh, {k: v for k, v in model.diag_fields(state).items()
+                                   if k in fields}, nlat=T.nlat)
+        if rank == 0:
+            np.savez(os.path.join(outdir, f"{name}.npz"),
+                     **{k: v.cpu().numpy().astype(np.float64) for k, v in got.items()})
+        dyn = state if name == "held_suarez" else state.dyn
+        blocks = mesh.all_gather(dyn.ts.curr[None], 0)
+        rep = {"m_rows": [T.m_start, T.m_start + T.spec_shape[0]],
+               "lat_rows": [T.lat_start, T.lat_start + T.grid_shape[0]],
+               "m_blocks_distinct": not torch.equal(blocks[0], blocks[1])}
+        dist.barrier()
+        state, rep["ms_per_step"] = _sharded_steps(model, state, SHARDED_TIMED_STEPS)
+        dist.barrier()
+        with _timed_collectives() as acc:
+            state, rep["instrumented_ms_per_step"] = _sharded_steps(
+                model, state, SHARDED_TIMED_STEPS)
+        for n, (calls, seconds) in acc.items():
+            rep[n] = {"calls_per_step": calls / SHARDED_TIMED_STEPS,
+                      "ms_per_step": 1e3 * seconds / SHARDED_TIMED_STEPS,
+                      "share_of_instrumented_step":
+                          1e3 * seconds / SHARDED_TIMED_STEPS / rep["instrumented_ms_per_step"]}
+        if name == "held_suarez":
+            tiles = os.path.join(outdir, "tiles")
+            dio.save_restart_sharded(tiles, state, mesh, nlat=T.nlat)
+            dist.barrier()
+            loaded = dio.load_restart_sharded(tiles, model.initial_state(), mesh)
+            rep["tile_blocks_bit_equal"] = all(
+                a.dtype == b.dtype and torch.equal(a, b) for (_, a), (_, b) in
+                zip(flatten_with_paths(state), flatten_with_paths(loaded)))
+            whole = gather_pytree(mesh, state, nlat=T.nlat)
+            if rank == 0:
+                combined = os.path.join(outdir, "combined.npz")
+                dio.combine_restart_tiles(tiles, combined)
+                back = load_restart(combined, whole)
+                rep["combined_bit_equal"] = all(
+                    torch.equal(a, b) for (_, a), (_, b) in
+                    zip(flatten_with_paths(whole), flatten_with_paths(back)))
+                rep["tile_mb"] = sum(os.path.getsize(os.path.join(tiles, f))
+                                     for f in os.listdir(tiles)) / 2**20
+        report[name] = rep
+    report["sw_flux_launches"] = getattr(rrtmg_sw.sw_flux_solve, "launches", 0)
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+
+
+def _sharded_run(backend):
+    """Spawn the ranks over `backend`, check what they wrote; the report."""
+    import tempfile
+
+    from isca_tpu_torch.parallel.mesh import spawn
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        spawn(sharded_rank, SHARDED_RANKS, backend, os.path.join(tmp, "init"), args=(tmp,))
+        ranks = []
+        for r in range(SHARDED_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        out = {"backend": backend, "ranks": SHARDED_RANKS,
+               "devices": [r["device"] for r in ranks],
+               "backends": [r["backend"] for r in ranks],
+               "sw_flux_launches": sum(r["sw_flux_launches"] for r in ranks)}
+        failures = []
+        for name, fields in SHARDED_MODELS.items():
+            with np.load(os.path.join(tmp, f"{name}.npz")) as data:
+                got = {k: data[k] for k in fields}
+            card, cpu32, cpu64 = COMPARE_REFS[name]
+            compare, ok = gap_compare(got, cpu32, cpu64, HS_TOL_FACTOR, fields)
+            rows = [r[name]["m_rows"] for r in ranks]
+            model = {"compare_steps": HS_COMPARE_STEPS, "tolerance_factor": HS_TOL_FACTOR,
+                     "compare": compare,
+                     "sharded_vs_one_card": {k: float(np.abs(got[k] - card[k]).max())
+                                             for k in fields},
+                     "m_rows": rows, "lat_rows": [r[name]["lat_rows"] for r in ranks],
+                     "ranks": [{k: v for k, v in r[name].items()
+                                if k not in ("m_rows", "lat_rows")} for r in ranks]}
+            if not ok:
+                failures.append(f"{name}: the sharded fields break the 3x rule: {compare}")
+            if len({tuple(x) for x in rows}) != SHARDED_RANKS or not all(
+                    r[name]["m_blocks_distinct"] for r in ranks):
+                failures.append(f"{name}: the ranks' m blocks are not distinct: {rows}")
+            out[name] = model
+        hs = [r["held_suarez"] for r in ranks]
+        if not (all(h["tile_blocks_bit_equal"] for h in hs) and hs[0]["combined_bit_equal"]):
+            failures.append(f"held_suarez: the tile restart did not load back bit-equal: {hs}")
+        if out["sw_flux_launches"] != 0:
+            failures.append(f"sw_flux launched {out['sw_flux_launches']} times")
+    out["phase_seconds"] = time.perf_counter() - t0
+    if failures:
+        raise RuntimeError("sharded: " + "; ".join(failures))
+    return out
+
+
+def phase_sharded(smi):
+    """The sharded phase: gloo on this card; NCCL when there are two cards."""
+    torch.cuda.empty_cache()
+    emit({"phase": "sharded", "what": "correctness run of ranks sharing one card over "
+          "gloo (staged through the host): not a scaling number", "nvidia_smi": smi,
+          **_sharded_run("gloo")})
+    if torch.cuda.device_count() >= 2:
+        emit({"phase": "sharded", "what": "ranks on their own cards over NCCL",
+              "nvidia_smi": smi, **_sharded_run("nccl")})
+    else:
+        emit({"phase": "sharded", "backend": "nccl",
+              "not_run": f"torch.cuda.device_count() is {torch.cuda.device_count()}: "
+                         "NCCL needs one card per rank"})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1979,6 +2184,7 @@ def _run_phases(kind, smi, cpu_refs):
                      continents_sst=phase_continents_sst(cpu_refs),
                      ras_bl=phase_ras_bl(cpu_refs))
     exp_launches = phase_experiment(hs_model, hs_ms, fr_model, fr_ms)
+    phase_sharded(smi)
     main_case = cases[0]                      # the main path's shape and variant
     emit({"kernels": [{
         "name": "sw_flux", "route": "cuda",

@@ -86,7 +86,8 @@ def make_damping(
     zm_v = np.zeros_like(lam2d)
     zm_v[0, :] = zmv_sponge_coeff * lam
 
-    f = lambda x: torch.as_tensor(x).to(device=T.device, dtype=T.dtype)
+    # on a mesh: this rank's m rows of each (M+1, N+2) table
+    f = lambda x: torch.as_tensor(T.local_m(x)).to(device=T.device, dtype=T.dtype)
     return SpectralDamping(
         rate=f(rate),
         sponge_vor=f(eddy + zm_u),

@@ -13,6 +13,11 @@ integers is floor-based (`torch.remainder`, `torch.div(..., "floor")`), as
 `jnp.mod` and `jnp.floor_divide` are.
 
 Arrays are (..., lat, lon), latitude south->north (index 0 = southernmost).
+On a mesh the arrays are a rank's latitude band: the halo rows between two
+bands come from the neighbouring ranks (`Mesh.exchange_rows`, where
+isca_tpu relies on XLA inserting the permutes), the antipodal halo and the
+zero flux stay at the true poles, on the polar bands' ranks, and the
+geometry is the whole globe's, cut to the band.
 Everything here is in the `advective` form used by update_tracers
 (dq_dt from a_grid_horiz_advection includes +q*div so the tendency is -V.grad q).
 """
@@ -20,10 +25,12 @@ Everything here is in the `advective` form used by update_tracers
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import numpy as np
 import torch
 
+from isca_tpu_torch.spectral import transforms as tr
 from isca_tpu_torch.spectral.transforms import SphericalTransforms
 
 
@@ -39,12 +46,16 @@ class FVGeometry:
     ny: int
     dx: float               # lon grid spacing at the equator [m]
     monotone: bool
+    mesh: Any = None        # the transforms' mesh: rows are a latitude band
+    south_pole: bool = True  # the band's first row is the southernmost
+    north_pole: bool = True  # the band's last row is the northernmost
 
 
 def make_fv_geometry(T: SphericalTransforms, monotone: bool = True) -> FVGeometry:
-    """Gaussian-box boundaries: sin(yy_j) partitions [-1,1] by the weights."""
+    """Gaussian-box boundaries: sin(yy_j) partitions [-1,1] by the weights.
+    On a mesh: the whole globe's geometry, cut to the rank's band."""
     ny, nx = T.nlat, T.nlon
-    w = T.wts.detach().cpu().numpy().astype(np.float64)
+    w = tr.gaussian_weights(T).detach().cpu().numpy().astype(np.float64)
     mu_b = -1.0 + np.concatenate([[0.0], np.cumsum(w)])
     mu_b = np.clip(mu_b, -1.0, 1.0)
     yy = np.arcsin(mu_b)                      # (ny+1,) boundary latitudes
@@ -63,11 +74,15 @@ def make_fv_geometry(T: SphericalTransforms, monotone: bool = True) -> FVGeometr
     jj = np.arange(-1, ny + 1)
     dy_plus = dy[jj + 2] / (dy[jj + 2] + dy[jj + 3])
     dy_minus = dy[jj + 2] / (dy[jj + 1] + dy[jj + 2])
-    f = lambda x: torch.as_tensor(x).to(device=T.device, dtype=T.dtype)
+    # the band's rows j0..j1-1 (each table keeps its own halo extension)
+    j0, j1 = T.lat_start, T.lat_start + T.grid_shape[0]
+    f = lambda x, extra: torch.as_tensor(x[j0:j1 + extra]).to(device=T.device,
+                                                              dtype=T.dtype)
     return FVGeometry(
-        c=f(c), cc=f(cc), dy=f(dy), dyy=f(dyy),
-        dy_plus=f(dy_plus), dy_minus=f(dy_minus),
-        nx=nx, ny=ny, dx=float(2.0 * np.pi * a / nx), monotone=bool(monotone),
+        c=f(c, 0), cc=f(cc, 1), dy=f(dy, 4), dyy=f(dyy, 1),
+        dy_plus=f(dy_plus, 2), dy_minus=f(dy_minus, 2),
+        nx=nx, ny=j1 - j0, dx=float(2.0 * np.pi * a / nx), monotone=bool(monotone),
+        mesh=T.mesh, south_pole=j0 == 0, north_pole=j1 == ny,
     )
 
 
@@ -76,10 +91,16 @@ def _antipode(x):
     return torch.roll(x, x.shape[-1] // 2, dims=-1)
 
 
-def _halo_y(q, sign=1.0):
-    """Append 2 antipodal halo rows on each side of the lat axis (axis -2)."""
-    south = sign * _antipode(torch.flip(q[..., :2, :], dims=(-2,)))   # rows 1,0 -> j=-2,-1
-    north = sign * _antipode(torch.flip(q[..., -2:, :], dims=(-2,)))  # rows ny-1, ny-2 -> j=ny, ny+1
+def _halo_y(G, q, sign=1.0):
+    """Append 2 halo rows on each side of the lat axis (axis -2): antipodal
+    across a pole (times `sign`), the neighbouring band's rows elsewhere."""
+    south = north = None
+    if G.mesh is not None:
+        south, north = G.mesh.exchange_rows(q, 2)
+    if south is None:   # rows 1,0 -> j=-2,-1
+        south = sign * _antipode(torch.flip(q[..., :2, :], dims=(-2,)))
+    if north is None:   # rows ny-1, ny-2 -> j=ny, ny+1
+        north = sign * _antipode(torch.flip(q[..., -2:, :], dims=(-2,)))
     return torch.cat([south, q, north], dim=-2)
 
 
@@ -122,7 +143,7 @@ def a_grid_horiz_advection(G: FVGeometry, ua, va, q, dt, flux_form: bool = False
 
     # ---- C-grid winds ----
     uc = 0.5 * (torch.roll(ua, 1, dims=-1) + ua)             # at left interfaces
-    vx = _halo_y(va, sign=-1.0)[..., 1:-1, :]                # rows -1..ny
+    vx = _halo_y(G, va, sign=-1.0)[..., 1:-1, :]             # rows -1..ny
     vc = 0.5 * (vx[..., :-1, :] + vx[..., 1:, :])            # (.., ny+1, lon) interfaces
 
     out = torch.zeros_like(q)
@@ -133,10 +154,10 @@ def a_grid_horiz_advection(G: FVGeometry, ua, va, q, dt, flux_form: bool = False
         out = out + q * div
 
     # ---- half-step cross terms ----
-    qx = _halo_y(q)                                          # rows -2..ny+1
+    qx = _halo_y(G, q)                                       # rows -2..ny+1
     q1 = q + _semi_x(G, ua, q, 0.5 * dt)                     # for the y fluxes
     q2 = q + _semi_y(G, va, qx, 0.5 * dt)                    # for the x fluxes
-    q1x = _halo_y(q1)
+    q1x = _halo_y(G, q1)
 
     out = out + _vanleer_x(G, uc, q2, dt)
     out = out + _vanleer_y(G, vc, q1x, dt)
@@ -217,8 +238,11 @@ def _vanleer_y(G, vc, qx, dt):
     flux_pos = vc * ccb * (q_dn + 0.5 * s_dn * (1.0 - dtdy_dn * vc))
     flux_neg = vc * ccb * (q_up - 0.5 * s_up * (1.0 + dtdy_up * vc))
     flux = torch.where(vc >= 0.0, flux_pos, flux_neg)
-    # polar boundaries: zero flux
+    # polar boundaries: zero flux (at the true poles only)
     zero = torch.zeros_like(flux[..., :1, :])
-    flux = torch.cat([zero, flux[..., 1:-1, :], zero], dim=-2)
+    if G.south_pole:
+        flux = torch.cat([zero, flux[..., 1:, :]], dim=-2)
+    if G.north_pole:
+        flux = torch.cat([flux[..., :-1, :], zero], dim=-2)
     dyc = 1.0 / (G.dy[2:-2][:, None] * G.c[:, None])
     return -dyc * (flux[..., 1:, :] - flux[..., :-1, :])

@@ -3,7 +3,8 @@
 Port of isca_tpu/dycore/initial_conditions.py: the numpy constructors of the
 published states are copied as they are; the `apply_*` functions band-limit
 them through the port's transforms into a PrimitiveState on the core's
-device.
+device. On a mesh they build the state on the whole globe (the balanced
+states integrate over latitude) and return this rank's blocks of it.
 
 Jablonowski & Williamson (2006, QJRMS 132: "A baroclinic instability test case
 for atmospheric model dynamical cores") — a balanced zonal jet in sigma
@@ -26,12 +27,14 @@ Formulas (eta ~ sigma here):
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
 import torch
 
 from isca_tpu_torch.dycore.time_integration import TwoLevel
+from isca_tpu_torch.parallel.mesh import shard_pytree
 from isca_tpu_torch.spectral import transforms as tr
 
 
@@ -95,6 +98,18 @@ def jablonowski_2006_state(cfg: Jablonowski2006Config, lats, lons, sigma,
     return u, t, surf_geopot
 
 
+def _on_global_grid(build):
+    """On a mesh: build (state, surf_geopotential) on the whole globe
+    (core.unsharded()), then keep this rank's blocks."""
+    @functools.wraps(build)
+    def wrapped(core, *args, **kwargs):
+        if core.T.mesh is None:
+            return build(core, *args, **kwargs)
+        state, surf = build(core.unsharded(), *args, **kwargs)
+        return shard_pytree(core.T.mesh, state, nlat=core.T.nlat), core.T.local_lat(surf)
+    return wrapped
+
+
 def _as_grid(core, a):
     """An array or tensor as a tensor of the core's dtype on its device."""
     if not torch.is_tensor(a):
@@ -130,6 +145,7 @@ def _state(core, u, v, t, ln_psg, tracers=None):
     )
 
 
+@_on_global_grid
 def apply_jablonowski_2006(core, cfg: Jablonowski2006Config = Jablonowski2006Config(),
                            surf_geopotential_out=None):
     """Build a PrimitiveState from the J&W 2006 balanced state on `core`.
@@ -387,6 +403,7 @@ def _balanced_grid_state(core, u_latlev, t_latlev, psurf_lat, perturbation):
     return state, torch.zeros(T.grid_shape, dtype=core.config.dtype, device=core.device)
 
 
+@_on_global_grid
 def apply_polvani_2007(core, cfg: Polvani2007Config = Polvani2007Config()):
     """Build a PrimitiveState from the Polvani-Esler 2007 life-cycle state.
 
@@ -406,6 +423,7 @@ def apply_polvani_2007(core, cfg: Polvani2007Config = Polvani2007Config()):
     return _balanced_grid_state(core, u, t, psurf, pert)
 
 
+@_on_global_grid
 def apply_polvani_2004(core, cfg: Polvani2004Config = Polvani2004Config()):
     """Build a PrimitiveState from the Polvani-Scott-Thomas 2004 test state
     (designed for 20 even-sigma levels). Returns (state, surf_geopot)."""
@@ -438,6 +456,7 @@ def _lat_boundaries(lats):
 # initial_state_option='input' in spectral_init_cond)
 # ---------------------------------------------------------------------------
 
+@_on_global_grid
 def apply_external_file(core, file_name, u_name="u", v_name="v", t_name="t",
                         ps_name="ps", surf_geopotential=None):
     """Build a PrimitiveState from grid fields in a NetCDF file.

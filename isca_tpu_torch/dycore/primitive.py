@@ -23,8 +23,15 @@ Array layout: grid (lev, lat, lon) with lev index 0 = top; spectral (lev, m, n)
 complex with total-wavenumber n. Vertical-column helpers operate level-last
 on movedim views.
 
-Not ported yet (they raise NotImplementedError): the sharded `mesh` path
-and transform precisions other than "highest".
+On a mesh (PrimitiveConfig.mesh, isca_tpu_torch.parallel.mesh) every rank
+steps its latitude band of the grid fields and its block of m rows of the
+spectral ones: the transforms transpose between the two, the global fixers
+and means all_reduce (spectral.transforms.area_weighted_mean), the (m=0,
+n=0) corrections go to the rank holding m = 0, and the grid tracers'
+finite-volume advection exchanges halo rows with the neighbouring bands.
+
+Not ported (it raises NotImplementedError): transform precisions other
+than "highest".
 """
 
 from __future__ import annotations
@@ -137,8 +144,10 @@ class PrimitiveConfig:
     use_virtual_temperature: bool = False
     constants: Constants = EARTH
     dtype: Any = torch.float32
-    # multi-device (mesh, its m padding and transpose chunking): the mesh
-    # path is not ported yet and raises; pad_m_to works on one device
+    # multi-device: an isca_tpu_torch.parallel.mesh.Mesh turns on the sharded
+    # transforms (lat-band grid / m-block spectral); pad_m_to pads the m
+    # axis (default: the mesh's size); overlap_chunks chains per sharded
+    # transform (no effect without a mesh)
     mesh: Any = None
     pad_m_to: int | None = None
     overlap_chunks: int = 2
@@ -171,6 +180,8 @@ class PrimitiveCore:
         self.tracer_attrs = tuple(tracer_attrs)
         if c.do_water_correction and "sphum" not in {a.name for a in self.tracer_attrs}:
             raise ValueError("do_water_correction needs a 'sphum' tracer")
+        if c.mesh is not None and device is None:
+            device = c.mesh.device
         self.device = resolve_device(device)
         self.C = c.constants
         self.T = tr.make_transforms(c.resolution, nlon=c.nlon, nlat=c.nlat,
@@ -183,6 +194,7 @@ class PrimitiveCore:
                                     fourier_inc=c.fourier_inc,
                                     pad_m_to=c.pad_m_to,
                                     mesh=c.mesh,
+                                    overlap_chunks=c.overlap_chunks,
                                     device=self.device)
         self.fv_geom = fv.make_fv_geometry(self.T) if any(
             a.representation == "grid" for a in self.tracer_attrs) else None
@@ -226,6 +238,21 @@ class PrimitiveCore:
         ) if c.use_implicit else None
 
         self.coriolis = tr.coriolis_grid(self.T, self.C.omega)
+
+    def unsharded(self) -> "PrimitiveCore":
+        """This core without its mesh, on the whole globe with the same m
+        rows (padding included), on this rank's device: for what is built
+        on the global grid and then sharded (dycore.initial_conditions)."""
+        c = dataclasses.replace(self.config, mesh=None, pad_m_to=self.T.num_fourier + 1)
+        return PrimitiveCore(c, tracer_attrs=self.tracer_attrs, device=self.device)
+
+    def _add_to_mean_mode(self, s, value):
+        """s with `value` added to its (m=0, n=0) coefficient (the grid mean),
+        out of place; on a mesh only the rank holding m = 0 adds it."""
+        s = s.clone()
+        if self.T.m_start == 0:
+            s[..., 0, 0] += value
+        return s
 
     # ------------------------------------------------------------------
     def pressure_variables(self, psg):
@@ -282,8 +309,9 @@ class PrimitiveCore:
         # EKE: mass-weighted global eddy kinetic energy with the zonal mean
         # (m = 0 modes) removed (spectral_dynamics.F90:1855-1862)
         vor_s, div_s = tr.vor_div_from_uv_grid(T, u, v)
-        zero_m0 = torch.ones((T.num_fourier + 1, 1), dtype=T.dtype, device=self.device)
+        zero_m0 = np.ones((T.num_fourier + 1, 1))
         zero_m0[0] = 0.0
+        zero_m0 = torch.as_tensor(T.local_m(zero_m0)).to(device=self.device, dtype=T.dtype)
         ue, ve = tr.uv_grid_from_vor_div(T, vor_s * zero_m0, div_s * zero_m0)
         eke = self.mass_weighted_integral(0.5 * (ue**2 + ve**2), psg)
 
@@ -291,8 +319,8 @@ class PrimitiveCore:
         vx = tr.spec_to_grid(T, tr.ddx_spec(T, vor_s[-1]))
         vy = tr.spec_to_grid(T, tr.cos_dlat_coeffs(T, vor_s[-1]))
         coslat = T.coslat[:, None]
-        vort_norm = torch.sqrt((vx / (T.radius * coslat)) ** 2
-                               + (vy / (T.radius * coslat)) ** 2).max()
+        vort_norm = tr.grid_max(T, torch.sqrt((vx / (T.radius * coslat)) ** 2
+                                              + (vy / (T.radius * coslat)) ** 2))
 
         out = {
             "ps": psg, "ucomp": u, "vcomp": v, "temp": t,
@@ -324,9 +352,10 @@ class PrimitiveCore:
                 "zsurf": surf_geopotential / self.C.grav}
 
     def validity(self, state: PrimitiveState):
-        """valid_range_t temperature guard (spectral_dynamics.F90:940-971)."""
+        """valid_range_t temperature guard (spectral_dynamics.F90:940-971);
+        global on a mesh (check_range)."""
         lo, hi = self.config.valid_range_t
-        return check_range(state.tg.curr, lo, hi)
+        return check_range(state.tg.curr, lo, hi, mesh=self.T.mesh)
 
     def _zeros(self, shape, dtype=None):
         return torch.zeros(shape, dtype=dtype or self.config.dtype, device=self.device)
@@ -344,7 +373,7 @@ class PrimitiveCore:
         pert_mask = np.zeros((L, T.num_fourier + 1, T.num_spherical + 1))
         for (m, nidx) in ((1, 3), (5, 3), (1, 2), (5, 2)):
             pert_mask[L - 3:, m, m + nidx] = 1.0e-7
-        pert = torch.as_tensor(pert_mask).to(device=self.device, dtype=c.dtype)
+        pert = torch.as_tensor(T.local_m(pert_mask, axis=1)).to(device=self.device, dtype=c.dtype)
         surf = surf_geopotential.to(device=self.device, dtype=c.dtype)
 
         ln_psg = math.log(c.reference_sea_level_press) - surf / (
@@ -653,17 +682,14 @@ class PrimitiveCore:
             mass_factor = mean_ps_prev / mean_ps_f
             psg_f = psg_f * mass_factor
             # grid mean equals the (0,0) coefficient in this normalization
-            lnps_f = lnps.curr.clone()
-            lnps_f[0, 0] += torch.log(mass_factor)
-            lnps = TwoLevel(lnps.prev, lnps_f)
+            lnps = TwoLevel(lnps.prev,
+                            self._add_to_mean_mode(lnps.curr, torch.log(mass_factor)))
         if c.do_energy_correction:
             energy_f = self.mass_weighted_integral(
                 0.5 * (ug_f**2 + vg_f**2) + C.cp_air * tg_f, psg_f)
             t_corr = C.grav * (energy_prev - energy_f) / (C.cp_air * mean_ps_prev)
             tg_f = tg_f + t_corr
-            ts_f = ts.curr.clone()
-            ts_f[:, 0, 0] += t_corr
-            ts = TwoLevel(ts.prev, ts_f)
+            ts = TwoLevel(ts.prev, self._add_to_mean_mode(ts.curr, t_corr))
 
         if c.do_water_correction:
             # rescale future moisture where p >= water_correction_limit so the

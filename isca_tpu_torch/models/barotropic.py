@@ -11,6 +11,11 @@ rotational tendency pair (pv*v, -pv*u) and converted with vor_div_from_uv_grid;
 time stepping is Robert-filtered leapfrog; damping is implicit del^(2k).
 An optional spectral tracer is advected with horizontal_advection
 (advective form). A run is a Python loop of eager steps.
+
+BarotropicConfig has no mesh, as isca_tpu's has none (its sharded run gets
+its layout from sharded inputs under GSPMD); here the mesh is an explicit
+constructor argument, and each rank then steps its latitude band and m
+block (spectral.transforms) from initial_state()'s blocks.
 """
 
 from __future__ import annotations
@@ -101,14 +106,17 @@ def initial_tracer(lat_deg, grid_shape):
 class BarotropicModel:
     """Holds the (static) transform tables and config; provides the step."""
 
-    def __init__(self, config: BarotropicConfig = BarotropicConfig(), device=None):
-        """device: None runs on CUDA (and raises without it); "cpu" on the CPU."""
+    def __init__(self, config: BarotropicConfig = BarotropicConfig(), device=None,
+                 mesh=None):
+        """device: None runs on CUDA (and raises without it); "cpu" on the CPU.
+        mesh: an isca_tpu_torch.parallel.mesh.Mesh shards the model (device
+        None is then the mesh's)."""
         self.config = c = config
         self.T = tr.make_transforms(c.resolution, nlon=c.nlon, nlat=c.nlat,
                                     radius=c.radius, dtype=c.dtype,
                                     precision=c.transform_precision,
                                     truncation_shape=c.truncation_shape,
-                                    fourier_inc=c.fourier_inc, device=device)
+                                    fourier_inc=c.fourier_inc, mesh=mesh, device=device)
         self.device = self.T.device
         self.damping = make_damping(
             self.T, damping_coeff=c.damping_coeff, damping_order=c.damping_order,
@@ -126,7 +134,8 @@ class BarotropicModel:
 
     def validity(self, state: BarotropicState):
         lo, hi = self.config.valid_range_v
-        return check_range(torch.stack([state.u.curr, state.v.curr]), lo, hi)
+        return check_range(torch.stack([state.u.curr, state.v.curr]), lo, hi,
+                           mesh=self.T.mesh)
 
     def initial_state(self, seed: int = 0) -> BarotropicState:
         c, T = self.config, self.T
@@ -135,10 +144,10 @@ class BarotropicModel:
         if c.initial_zonal_wind == "two_jets":
             u1d = 25.0 * coslat - 30.0 * coslat**3 + 300.0 * sinlat**2 * coslat**6
         elif c.initial_zonal_wind == "zero":
-            u1d = np.zeros(T.nlat)
+            u1d = np.zeros(T.grid_shape[0])
         else:
             raise ValueError(c.initial_zonal_wind)
-        u0 = np.broadcast_to(u1d[:, None], (T.nlat, T.nlon)).astype(np.float64)
+        u0 = np.broadcast_to(u1d[:, None], T.grid_shape).astype(np.float64)
 
         # Gaussian eddy perturbation in vorticity at zonal wavenumber m_0
         # (barotropic_dynamics.F90 init: 0.5*zeta_0*cos(lat)*exp(-yy^2)*cos(m_0*lon),

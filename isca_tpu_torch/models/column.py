@@ -57,7 +57,11 @@ class ColumnState:
 
 
 class ColumnModel:
-    def __init__(self, config: ColumnConfig = ColumnConfig(), device=None):
+    def __init__(self, config: ColumnConfig = ColumnConfig(), device=None, mesh=None):
+        """device: None runs on CUDA; "cpu" on the CPU. mesh: the column
+        model is not sharded yet, and a mesh raises NotImplementedError."""
+        if mesh is not None:
+            raise NotImplementedError("the column model is not sharded yet")
         self.config = c = config
         self.device = resolve_device(device)
         self.C = c.constants

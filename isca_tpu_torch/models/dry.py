@@ -3,7 +3,10 @@
 Port of isca_tpu/models/dry.py: the spectral dycore
 (isca_tpu_torch.dycore.primitive) with Held-Suarez forcing evaluated at the
 `previous` time level (reference: the solo atmosphere.F90:292-330).
-A run is a Python loop of eager steps.
+A run is a Python loop of eager steps. With PrimitiveConfig(mesh=...) every
+rank steps its own blocks (dycore.primitive); the state, initial_state()
+included, is the rank's blocks, and the diagnostics' means and extrema are
+global.
 """
 
 from __future__ import annotations
@@ -81,9 +84,9 @@ class HeldSuarezModel:
         return {
             "mean_ps": tr.area_weighted_mean(T, state.psg.curr),
             "mean_T": tr.area_weighted_mean(T, t.mean(dim=0)),
-            "tmin": t.min(),
-            "tmax": t.max(),
-            "umax": torch.abs(u).max(),
+            "tmin": tr.grid_min(T, t),
+            "tmax": tr.grid_max(T, t),
+            "umax": tr.grid_max(T, torch.abs(u)),
             "u_zonal": u.mean(dim=2),
             "t_zonal": t.mean(dim=2),
             "energy": self.core.mass_weighted_integral(

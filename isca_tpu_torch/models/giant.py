@@ -39,7 +39,7 @@ JUPITER = Constants(
 
 def giant_planet_model(
     resolution="T42", num_levels=30, dt=1800.0, dtype=None, cutoff_wn=15,
-    transform_precision="highest", device=None,
+    transform_precision="highest", device=None, mesh=None,
 ) -> GreyMoistModel:
     """Build the giant-planet model (reduced resolution by default; the
     reference test case runs T213L30 with dt=1800).
@@ -52,7 +52,8 @@ def giant_planet_model(
     damping_coeff=1.3889e-4 (cutoff_wn=15 is the reference trip test's own
     T42 reduction, trip_test_functions.py:50-55; the T213 case uses 100),
     and the rayleigh_bottom_drag module defaults (sigma_b=0.85).
-    device: None runs on CUDA (and raises without it); "cpu" on the CPU."""
+    device: None runs on CUDA (and raises without it); "cpu" on the CPU.
+    mesh: the model is not sharded yet, and a mesh raises NotImplementedError."""
     core = PrimitiveConfig(
         resolution=resolution,
         num_levels=num_levels,
@@ -70,6 +71,7 @@ def giant_planet_model(
         constants=JUPITER,
         dtype=dtype or torch.float32,
         transform_precision=transform_precision,
+        mesh=mesh,
     )
     physics = MoistPhysicsConfig(
         convection_scheme="DRY",

@@ -17,6 +17,12 @@ Land (`set_land`: a land mask and surface height) and the Manabe bucket
 hydrology (`bucket=True`) are ported. MY2.5's TKE is part of the state.
 
 Matches exp/test_cases/frierson/frierson_test_case.py defaults.
+
+With PrimitiveConfig(mesh=...) every rank steps its latitude band of the
+columns and its m block of the spectral state (dycore.primitive); the
+diagnostics' means and extrema are global. On a mesh only the grey
+radiation is ported: RRTM, SOCRATES, the giant-planet lower boundary and
+set_land raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -82,6 +88,8 @@ class GreyMoistModel:
     def __init__(self, config: GreyMoistConfig = GreyMoistConfig(), device=None):
         """device: None runs on CUDA (and raises without it); "cpu" on the CPU."""
         self.config = config
+        if config.core.mesh is not None:
+            _check_shardable(config)
         attrs = (TracerAttr("sphum", representation="grid",
                             vert_scheme=config.sphum_vert_scheme),)
         self.core = PrimitiveCore(config.core, tracer_attrs=attrs, device=device)
@@ -109,6 +117,9 @@ class GreyMoistModel:
         (utils.topography.band_limit_topography) as the reference does for
         input topography. Arrays or tensors; they are moved to the model's
         device and dtype."""
+        if self.config.core.mesh is not None:
+            raise NotImplementedError("set_land on a mesh is not ported: the "
+                                      "sharded GreyMoistModel runs the aquaplanet")
         if units not in ("m", "m2/s2"):
             raise ValueError(f"set_land units must be 'm' or 'm2/s2', got {units!r}")
         as_t = lambda x: torch.as_tensor(
@@ -286,17 +297,30 @@ class GreyMoistModel:
         q = dyn.tracers["sphum"].curr
         return {
             "mean_ps": tr.area_weighted_mean(T, dyn.psg.curr),
-            "tmin": dyn.tg.curr.min(),
-            "tmax": dyn.tg.curr.max(),
-            "umax": torch.abs(dyn.ug.curr).max(),
-            "qmin": q.min(),
-            "qmax": q.max(),
+            "tmin": tr.grid_min(T, dyn.tg.curr),
+            "tmax": tr.grid_max(T, dyn.tg.curr),
+            "umax": tr.grid_max(T, torch.abs(dyn.ug.curr)),
+            "qmin": tr.grid_min(T, q),
+            "qmax": tr.grid_max(T, q),
             "mean_t_surf": tr.area_weighted_mean(T, state.t_surf),
             "total_water": self.core.mass_weighted_integral(q, dyn.psg.curr),
             "t_zonal": dyn.tg.curr.mean(dim=2),
             "u_zonal": dyn.ug.curr.mean(dim=2),
             "q_zonal": q.mean(dim=2),
         }
+
+
+def _check_shardable(config: GreyMoistConfig):
+    """NotImplementedError for the GCMs that are not sharded yet."""
+    pc = config.physics
+    name = None
+    if pc.gp_surface:
+        name = "the giant planet model"
+    elif pc.radiation_scheme.lower() != "two_stream":
+        name = f"the {pc.radiation_scheme} radiation GCM"
+    if name is not None:
+        raise NotImplementedError(f"{name} is not sharded yet: on a mesh "
+                                  "GreyMoistModel runs grey radiation only")
 
 
 # Frierson 2006 sigma ladder (reference frierson_test_case.py vert_coordinate_nml)

@@ -113,8 +113,12 @@ class ShallowState:
 
 
 class ShallowModel:
-    def __init__(self, config: ShallowConfig = ShallowConfig(), device=None):
-        """device: None runs on CUDA (and raises without it); "cpu" on the CPU."""
+    def __init__(self, config: ShallowConfig = ShallowConfig(), device=None, mesh=None):
+        """device: None runs on CUDA (and raises without it); "cpu" on the CPU.
+        mesh: the shallow-water model is not sharded yet, and a mesh raises
+        NotImplementedError."""
+        if mesh is not None:
+            raise NotImplementedError("the shallow-water model is not sharded yet")
         self.config = c = config
         self.T = T = tr.make_transforms(c.resolution, nlon=c.nlon, nlat=c.nlat,
                                         radius=c.radius, dtype=c.dtype,

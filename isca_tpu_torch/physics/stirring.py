@@ -12,8 +12,11 @@ round trip:
     dt_vors += s
 
 The draws are isca_tpu's to the bit: a threaded uint32[2] key, split and
-drawn by the port's threefry (utils/threefry.py) as jax.random does. Each
-update runs inside a profiler range named "stirring".
+drawn by the port's threefry (utils/threefry.py) as jax.random does. On a
+mesh every rank draws the whole (M+1, N+2) field and keeps its m rows, so
+the sharded run is stirred as the run on one device is; the localisation
+round trip runs through the sharded transforms. Each update runs inside a
+profiler range named "stirring".
 """
 
 from __future__ import annotations
@@ -58,8 +61,9 @@ def make_stirring(
     n = np.arange(N2)[None, :]
     mask = (m > zonal_forcing_min) & (n > n_total_forcing_min) & (n < n_total_forcing_max)
     mask &= n >= m
-    # never force outside the prognostic triangle (keeps padded m rows zero)
-    mask &= T.triangle.cpu().numpy() > 0.0
+    # this rank's m rows; never force outside the prognostic triangle
+    # (keeps padded m rows zero)
+    mask = T.local_m(mask) & (T.triangle.cpu().numpy() > 0.0)
 
     # in the tables' own dtype, as isca_tpu computes it from its tables
     lat_deg = np.degrees(T.lats.cpu().numpy())
@@ -68,7 +72,7 @@ def make_stirring(
     xx = xx - 360.0 * np.rint(xx / 360.0)
     ampx = 1.0 + B * np.exp(-0.5 * (xx / widthx) ** 2)
     ampy = np.exp(-0.5 * ((lat_deg - lat0) / widthy) ** 2)
-    localize = ampy[:, None] * ampx[None, :] if do_localize else np.ones((T.nlat, T.nlon))
+    localize = ampy[:, None] * ampx[None, :] if do_localize else np.ones(T.grid_shape)
 
     f = lambda x: torch.as_tensor(np.asarray(x)).to(device=T.device, dtype=T.dtype)
     return Stirring(
@@ -88,9 +92,11 @@ def stir(S: Stirring, T: tr.SphericalTransforms, s_stir: torch.Tensor,
         return s_stir, key
     with record_function("stirring"):
         key, sub = threefry.split(key)
-        ran = threefry.uniform(sub, tuple(s_stir.shape) + (2,), T.dtype, -1.0, 1.0)
+        whole = (T.num_fourier + 1, T.num_spherical + 1, 2)
+        ran = T.local_m(threefry.uniform(sub, whole, T.dtype, -1.0, 1.0))
         new = S.amplitude * S.a * torch.complex(ran[..., 0], ran[..., 1]) * S.mask
         if S.do_localize:
             new = tr.grid_to_spec(T, S.localize * tr.spec_to_grid(T, new))
-            new[0, 0] = 0.0
+            if T.m_start == 0:
+                new[0, 0] = 0.0
         return S.b * s_stir + new, key

@@ -22,19 +22,32 @@ isca_tpu's named scopes), so a torch.profiler trace gives each its device time.
 Normalization: see isca_tpu_torch.spectral.gauss. Global area mean of a field
 equals the real part of its (m=0, n=0) coefficient.
 
-Not ported yet: the sharded transpose-method transforms (`mesh`) and any
-transform precision other than "highest" raise NotImplementedError.
+On a mesh (isca_tpu_torch.parallel.mesh; isca_tpu's shard_map branch,
+reference: the transpose of transforms.F90:970-1056 and spec_mpp.F90) each
+rank holds its latitude band of the grid-space tables and its block of m
+rows of the spectral ones, so grid tensors are (..., lat_band, lon) and
+spectral tensors (..., m_block, n). A transform is a local DFT, one
+`all_to_all` of the real (re, im) Fourier coefficients between the two
+layouts, and a local Legendre product (the reverse for synthesis); with
+overlap_chunks > 1 the leading batch axis runs as that many chains whose
+transposes overlap the previous chain's Legendre product. Global means are
+an `all_reduce`.
+
+Not ported: any transform precision other than "highest" raises
+NotImplementedError.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
 from isca_tpu_torch import resolve_device
+from isca_tpu_torch.parallel.mesh import check_mesh
 from isca_tpu_torch.spectral import gauss
 
 # Standard triangular truncations -> (nlon, nlat), as in the reference's RESOLUTIONS
@@ -50,7 +63,10 @@ RESOLUTIONS: dict[str, tuple[int, int, int]] = {
 
 @dataclasses.dataclass(frozen=True)
 class SphericalTransforms:
-    """Precomputed transform tables for one resolution, as tensors on one device."""
+    """Precomputed transform tables for one resolution, as tensors on one
+    device. On a mesh, the (nlat,)-indexed tables hold this rank's latitude
+    band and the m-indexed ones its block of m rows (nlat, num_fourier and
+    num_fourier_true stay global); the DFT tables are whole."""
 
     truncation: int       # T (e.g. 42)
     num_fourier: int      # m rows - 1 (>= true M when the m axis is padded)
@@ -92,14 +108,31 @@ class SphericalTransforms:
     dft_ana: torch.Tensor    # (nlon, 2(M+1)) = [dft_cos_f | dft_sin_f]
     dft_syn: torch.Tensor    # (2(M+1), nlon) = [dft_cos_i ; dft_sin_i]
     fourier_method: str = "dft"
+    # isca_tpu_torch.parallel.mesh.Mesh: selects the sharded transforms
+    mesh: Any = None
+    # chains per sharded transform (mesh only): chain k's all_to_all runs
+    # while chain k-1's Legendre product does; 1 = one transpose
+    overlap_chunks: int = 1
+    m_start: int = 0        # global index of this rank's first m row
+    lat_start: int = 0      # global index of this rank's first latitude
 
     @property
     def spec_shape(self) -> tuple[int, int]:
-        return (self.num_fourier + 1, self.num_spherical + 1)
+        """The shape of one spectral level on this rank."""
+        return (self.mvec.shape[0], self.num_spherical + 1)
 
     @property
     def grid_shape(self) -> tuple[int, int]:
-        return (self.nlat, self.nlon)
+        """The shape of one grid level on this rank (its latitude band)."""
+        return (self.wts.shape[0], self.nlon)
+
+    def local_m(self, a, axis: int = 0):
+        """This rank's m rows of a global (..., M+1, ...) array or tensor."""
+        return _rows(a, axis, self.m_start, self.spec_shape[0])
+
+    def local_lat(self, a, axis: int = 0):
+        """This rank's latitude band of a global (..., nlat, ...) array or tensor."""
+        return _rows(a, axis, self.lat_start, self.grid_shape[0])
 
     @property
     def dtype(self) -> torch.dtype:
@@ -112,6 +145,12 @@ class SphericalTransforms:
     @property
     def device(self) -> torch.device:
         return self.P.device
+
+
+def _rows(a, axis, start, count):
+    index = [slice(None)] * a.ndim
+    index[axis] = slice(start, start + count)
+    return a[tuple(index)]
 
 
 def make_transforms(
@@ -127,6 +166,7 @@ def make_transforms(
     fourier_inc: int = 1,
     pad_m_to: int | None = None,
     mesh=None,
+    overlap_chunks: int = 2,
     device=None,
 ) -> SphericalTransforms:
     """Build transform tables for a triangular or rhomboidal truncation.
@@ -145,15 +185,21 @@ def make_transforms(
     triangular truncation m rows beyond T are dropped entirely.
 
     pad_m_to pads the m axis with structurally-zero rows so the m count is a
-    multiple of pad_m_to (default 1). Padded rows carry exact zeros end to
-    end: their table entries, operator coefficients and triangle mask are 0.
+    multiple of pad_m_to (default: the mesh's size, else 1). Padded rows
+    carry exact zeros end to end: their table entries, operator coefficients
+    and triangle mask are 0.
 
     precision: only "highest" (exact FP32 or FP64 products) is ported.
-    mesh: the sharded transforms are not ported; a mesh raises.
-    device: where the tables live; None is CUDA (isca_tpu_torch.resolve_device).
+    mesh (isca_tpu_torch.parallel.mesh.Mesh): the sharded transforms, with
+    this rank's band and m block of the tables (the mesh path always runs
+    the dense DFT); overlap_chunks: chains per sharded transform.
+    device: where the tables live; None is the mesh's device, else CUDA
+    (isca_tpu_torch.resolve_device).
     """
     if mesh is not None:
-        raise NotImplementedError("sharded transforms (mesh) are not ported yet")
+        check_mesh(mesh)
+        if device is None:
+            device = mesh.device
     if precision != "highest":
         raise NotImplementedError(
             f"transform precision {precision!r} is not ported: only 'highest' "
@@ -235,7 +281,9 @@ def make_transforms(
 
     # m-axis zero padding (see docstring)
     M_true = M
-    n_pad = (-(M + 1)) % (pad_m_to or 1)
+    if pad_m_to is None:
+        pad_m_to = mesh.size if mesh is not None else 1
+    n_pad = (-(M + 1)) % pad_m_to
     if n_pad:
         def _pad_m(a, axis):
             width = [(0, 0)] * a.ndim
@@ -251,6 +299,25 @@ def make_transforms(
         dft_cos_i, dft_sin_i = _pad_m(dft_cos_i, 0), _pad_m(dft_sin_i, 0)
         m_values = np.concatenate([m_values, np.zeros(n_pad, m_values.dtype)])
         M = M + n_pad
+
+    Pw = P * (w[:, None, None] / 2.0)
+    m_start = lat_start = 0
+    if mesh is not None:
+        ndev = mesh.size
+        if (M + 1) % ndev or nlat % ndev:
+            raise ValueError(
+                f"mesh of {ndev} devices needs (m rows={M + 1}) % {ndev} == 0 "
+                f"(set pad_m_to) and nlat={nlat} % {ndev} == 0")
+        # this rank's m block of the spectral tables, its band of the grid ones
+        m_start, m_stop = mesh.block(M + 1)
+        lat_start, lat_stop = mesh.block(nlat)
+        mb = slice(m_start, m_stop)
+        P, Pw = P[:, mb], Pw[:, mb]
+        eps, triangle, m_values = eps[mb], triangle[mb], m_values[mb]
+        uv_im, uv_cm, uv_cp = uv_im[mb], uv_cm[mb], uv_cp[mb]
+        vd_im, vd_dn, vd_up = vd_im[mb], vd_dn[mb], vd_up[mb]
+        cdl_up, cdl_dn = cdl_up[mb], cdl_dn[mb]
+        mu, w = mu[lat_start:lat_stop], w[lat_start:lat_stop]
 
     f = lambda x: torch.as_tensor(np.ascontiguousarray(x, np.float64)).to(
         device=device, dtype=dtype)
@@ -268,7 +335,7 @@ def make_transforms(
         lats=f(np.arcsin(mu)),
         lons=f(2.0 * np.pi * np.arange(nlon) / nlon),
         P=f(P),
-        Pw=f(P * (w[:, None, None] / 2.0)),
+        Pw=f(Pw),
         eps=f(eps),
         mvec=f(np.asarray(m_values, np.float64)),
         nn1=f(nn1),
@@ -291,6 +358,10 @@ def make_transforms(
         dft_ana=f(np.concatenate([dft_cos_f, dft_sin_f], axis=1)),
         dft_syn=f(np.concatenate([dft_cos_i, dft_sin_i], axis=0)),
         fourier_method=fourier_method,
+        mesh=mesh,
+        overlap_chunks=max(int(overlap_chunks), 1),
+        m_start=m_start,
+        lat_start=lat_start,
     )
 
 
@@ -353,13 +424,92 @@ def spec_to_fourier(T: SphericalTransforms, s: torch.Tensor) -> torch.Tensor:
 def grid_to_spec(T: SphericalTransforms, g: torch.Tensor,
                  truncate: bool = True) -> torch.Tensor:
     """Full forward transform (reference: trans_grid_to_spherical, transforms.F90:462)."""
-    s = fourier_to_spec(T, grid_to_fourier(T, g))
+    if T.mesh is not None:
+        s = _pipeline(T, g, _analysis_send, _analysis_recv)
+    else:
+        s = fourier_to_spec(T, grid_to_fourier(T, g))
     return triangular_truncate(T, s) if truncate else s
 
 
 def spec_to_grid(T: SphericalTransforms, s: torch.Tensor) -> torch.Tensor:
     """Full inverse transform (reference: trans_spherical_to_grid, transforms.F90:379)."""
+    if T.mesh is not None:
+        return _pipeline(T, s, _synthesis_send, _synthesis_recv)
     return fourier_to_grid(T, spec_to_fourier(T, s))
+
+
+# ---------------------------------------------------------------------------
+# Sharded transpose-method transforms (isca_tpu's _grid_to_spec_shmap and
+# _spec_to_grid_shmap; reference: transforms.F90:970-1056 + spec_mpp.F90).
+# Grid space is lat-sharded, spectral space m-sharded; the re-partition is
+# one all_to_all per chain, each element moving once. The (re, im) parts
+# travel as one real tensor whose leading axis is the destination rank.
+# ---------------------------------------------------------------------------
+
+def _chunk_bounds(n: int, k: int):
+    """<=k contiguous chunk boundaries covering n rows (all non-empty)."""
+    k = max(1, min(int(k), int(n)))
+    bounds = np.linspace(0, n, k + 1).astype(int)
+    return [(int(a), int(b)) for a, b in zip(bounds[:-1], bounds[1:]) if b > a]
+
+
+def _pipeline(T: SphericalTransforms, x: torch.Tensor, send, recv) -> torch.Tensor:
+    """Run send (local stage, then an async all_to_all) and recv (wait, then
+    the other local stage) over chains of x's leading axis, issuing chain
+    k's transpose before chain k-1's second stage."""
+    chains = [None]           # the whole of x
+    if T.overlap_chunks > 1 and x.ndim >= 3 and x.shape[0] > 1:
+        chains = _chunk_bounds(x.shape[0], T.overlap_chunks)
+    outs, pending = [], None
+    for chain in chains:
+        sent = send(T, x if chain is None else x[chain[0]:chain[1]])
+        if pending is not None:
+            outs.append(recv(T, *pending))
+        pending = sent
+    outs.append(recv(T, *pending))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
+
+
+def _analysis_send(T, g):
+    """Local DFT of the band, then the transpose: rank r gets the band's
+    coefficients of its m block, as (size, ..., lat_band, m_block, 2)."""
+    n, lead = T.mesh.size, g.shape[:-2]
+    k = len(lead)
+    with record_function("dft"):
+        FF = torch.matmul(g, T.dft_ana)                 # (..., lat_band, 2 (M+1))
+    FF = FF.reshape(*lead, g.shape[-2], 2, n, T.spec_shape[0])
+    FF = FF.permute(k + 2, *range(k), k, k + 3, k + 1)
+    return T.mesh.all_to_all(FF, async_op=True) + (lead,)
+
+
+def _analysis_recv(T, out, work, lead):
+    """All latitudes of this rank's m block, then the local Legendre analysis."""
+    work.wait()
+    F = out.movedim(0, len(lead)).reshape(*lead, T.nlat, T.spec_shape[0], 2)
+    with record_function("legendre"):
+        ss = torch.einsum("jmn,...jmr->...mnr", T.Pw, F)
+    return torch.view_as_complex(ss.contiguous())
+
+
+def _synthesis_send(T, s):
+    """Local Legendre synthesis of the m block on all latitudes, then the
+    transpose: rank r gets band r, as (size, ..., lat_band, m_block, 2)."""
+    n, lead = T.mesh.size, s.shape[:-2]
+    with record_function("legendre"):
+        FF = torch.einsum("jmn,...mnr->...jmr", T.P, torch.view_as_real(s))
+    FF = FF.reshape(*lead, n, T.nlat // n, T.spec_shape[0], 2).movedim(len(lead), 0)
+    return T.mesh.all_to_all(FF, async_op=True) + (lead,)
+
+
+def _synthesis_recv(T, out, work, lead):
+    """Every m block of this rank's band as [Re | Im] over m, then the local
+    inverse DFT."""
+    work.wait()
+    k = len(lead)
+    F = out.permute(*range(1, k + 1), k + 1, k + 3, 0, k + 2)
+    F = F.reshape(*lead, out.shape[k + 1], 2 * (T.num_fourier + 1))
+    with record_function("dft"):
+        return torch.matmul(F, T.dft_syn).to(T.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -486,11 +636,32 @@ def horizontal_advection(T: SphericalTransforms, f_spec: torch.Tensor,
 
 def area_weighted_mean(T: SphericalTransforms, g: torch.Tensor) -> torch.Tensor:
     """Area-weighted global mean over the trailing (lat, lon) axes (always
-    exact: it is the measuring stick of the mass and energy fixers)."""
+    exact: it is the measuring stick of the mass and energy fixers). On a
+    mesh: the band's partial sum, then an all_reduce in g's dtype."""
     w = (T.wts / 2.0).to(g.dtype)
-    return torch.einsum("...jk,j->...", g, w) / T.nlon
+    mean = torch.einsum("...jk,j->...", g, w) / T.nlon
+    return mean if T.mesh is None else T.mesh.all_reduce(mean)
+
+
+def grid_max(T: SphericalTransforms, g: torch.Tensor) -> torch.Tensor:
+    """The largest value of a grid tensor over the whole globe."""
+    return g.max() if T.mesh is None else T.mesh.all_reduce(g.max(), "max")
+
+
+def grid_min(T: SphericalTransforms, g: torch.Tensor) -> torch.Tensor:
+    """The smallest value of a grid tensor over the whole globe."""
+    return g.min() if T.mesh is None else T.mesh.all_reduce(g.min(), "min")
+
+
+def gaussian_weights(T: SphericalTransforms) -> torch.Tensor:
+    """The (nlat,) Gaussian weights of the whole globe in T's dtype, on any
+    rank (T.wts holds only the band on a mesh)."""
+    if T.mesh is None:
+        return T.wts
+    return torch.as_tensor(gauss.gauss_legendre(T.nlat)[1]).to(device=T.device,
+                                                                dtype=T.dtype)
 
 
 def coriolis_grid(T: SphericalTransforms, omega: float) -> torch.Tensor:
-    """Planetary vorticity f = 2*Omega*sin(lat) on the grid, shape (nlat, nlon)."""
-    return (2.0 * omega * T.sinlat[:, None]).expand(T.nlat, T.nlon)
+    """Planetary vorticity f = 2*Omega*sin(lat) on the grid, shape grid_shape."""
+    return (2.0 * omega * T.sinlat[:, None]).expand(*T.grid_shape)

@@ -2,27 +2,18 @@
 
 Port of isca_tpu/utils/clocks.py (reference: src/shared/mpp/mpp.F90 clocks,
 mpp_clock_id/begin/end with a summary at fms_end, and memutils
-print_memuse_stats). isca_tpu reads its clock and resident set from its
-native library when that is built; the port has its own copy of that
-library's pure-Python fallbacks (`time.monotonic_ns()`, and -1 for the
-resident set). For device work wrap the region so it ends in
-`torch.cuda.synchronize()`, or use torch.profiler for kernel-level traces.
+print_memuse_stats). The clock and the resident set come from the port's
+native library (isca_tpu_torch.native, built with g++ at first use). For
+device work wrap the region so it ends in `torch.cuda.synchronize()`, or use
+torch.profiler for kernel-level traces.
 """
 
 from __future__ import annotations
 
 import contextlib
-import time
 from collections import defaultdict
 
-
-def ns_clock() -> int:
-    return time.monotonic_ns()
-
-
-def rss_kb() -> int:
-    """Resident set size in KiB; -1: not measured without the native library."""
-    return -1
+from isca_tpu_torch.native import ns_clock, rss_kb
 
 
 class Clocks:

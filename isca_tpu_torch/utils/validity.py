@@ -26,14 +26,18 @@ class ValidityReport(NamedTuple):
     max_idx: torch.Tensor
 
 
-def check_range(field: torch.Tensor, lo: float, hi: float) -> ValidityReport:
+def check_range(field: torch.Tensor, lo: float, hi: float, mesh=None) -> ValidityReport:
     """Range-check a field. A NaN is the extremum it stands at (argmin and
-    argmax propagate it), so a field holding one is never ok."""
+    argmax propagate it), so a field holding one is never ok. On a mesh
+    (the field is a rank's block) the extrema and `ok` are the whole
+    field's, all_reduced; the indices stay within the rank's block."""
     flat = field.reshape(-1)
     imin = torch.argmin(flat)
     imax = torch.argmax(flat)
     vmin = flat[imin]
     vmax = flat[imax]
+    if mesh is not None:
+        vmin, vmax = mesh.all_reduce(vmin, "min"), mesh.all_reduce(vmax, "max")
     unravel = lambda i: torch.stack(torch.unravel_index(i, field.shape)).to(torch.int32)
     return ValidityReport(
         ok=(vmin >= lo) & (vmax <= hi),

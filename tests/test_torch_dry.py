@@ -183,9 +183,12 @@ def test_unported_model_options_raise(monkeypatch):
     # holds it against isca_tpu); the options below still raise
     assert {"slp", "EKE", "vort_norm"} <= set(tm.diag_fields(tm.initial_state(), extended=True))
     core = TPC(dtype=torch.float64, **SHAPE)
-    for bad in (dict(mesh=object()), dict(transform_precision="high")):
-        with pytest.raises(NotImplementedError):
-            THSM(THSC(core=dataclasses.replace(core, **bad)), device="cpu")
+    # the sharded model is ported (tests/test_torch_parallel.py); a mesh
+    # that is not a parallel.mesh.Mesh still raises
+    with pytest.raises(TypeError, match="Mesh"):
+        THSM(THSC(core=dataclasses.replace(core, mesh=object())), device="cpu")
+    with pytest.raises(NotImplementedError):
+        THSM(THSC(core=dataclasses.replace(core, transform_precision="high")), device="cpu")
     # the water fixer is ported; the dry model has no sphum tracer for it
     with pytest.raises(ValueError, match="sphum"):
         THSM(THSC(core=dataclasses.replace(core, do_water_correction=True)), device="cpu")

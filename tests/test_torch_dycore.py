@@ -408,7 +408,9 @@ def test_unported_core_options_raise():
     # the fixer still needs a sphum tracer to fix
     with pytest.raises(ValueError, match="sphum"):
         TCore(dataclasses.replace(base, do_water_correction=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # the sharded core is ported (tests/test_torch_parallel.py); a mesh that
+    # is not a parallel.mesh.Mesh still raises
+    with pytest.raises(TypeError, match="Mesh"):
         TCore(dataclasses.replace(base, mesh=object()), device="cpu")
     with pytest.raises(NotImplementedError, match="precision"):
         TCore(dataclasses.replace(base, transform_precision="high"), device="cpu")

@@ -129,7 +129,9 @@ def test_float32_tables_round_like_jax():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # the sharded transforms are ported (tests/test_torch_parallel.py); a
+    # mesh that is not a parallel.mesh.Mesh still raises
+    with pytest.raises(TypeError, match="Mesh"):
         ttr.make_transforms("T21", device="cpu", mesh=object())
     for precision in ("high", "default"):
         with pytest.raises(NotImplementedError, match="precision"):
