@@ -9,10 +9,11 @@ Phases, each printed as one JSON line:
            reports the time and the compiler's register/spill lines;
   kernels  holds each kernel against its plain PyTorch version on the card,
            on seeded random inputs at the shapes of the main paths (sw_flux:
-           8192 x 25 x 112 for RRTMG-SW and 8192 x 25 x 28 for SOCRATES,
-           clear and cloudy) and at an odd shape, times both with CUDA
-           events, and reports the kernel's launch plan and resident blocks
-           per SM;
+           8192 x 25 x 112 for RRTMG-SW, 8192 x 25 x 28 for SOCRATES,
+           8192 x 40 x 112 for the namelist MiMA and 4096 x 25 x 112 for one
+           of 2 ranks' bands at T42, clear and cloudy) and at an odd shape,
+           times both with CUDA events, and reports the kernel's launch plan
+           and resident blocks per SM;
   slice    drives the column path: the RRTM single-column model at T42 width
            (64 x 128 columns, 25 levels, float32, RRTMG-SW + grey LW) through
            ColumnModel.run; compares 3 steps with the same 3 steps on the CPU
@@ -108,9 +109,11 @@ Phases, each printed as one JSON line:
            the "stirring" and "threefry" ranges' launches.
   giant    giant_planet_model() (T42L30) 3 steps against the CPU as above;
            then the reference test case's T213L30 (dt = 1800 s, cutoff_wn =
-           100, float32): 4 warm-up steps, three timed 10-step runs, median
-           ms per step, giant_T213L30_model_days_per_day, launches per step,
-           idle share, peak memory.
+           100, float32): 3 steps kept for `giant_t213_compare` (the CPU's
+           T213L30 runs are a cpu_reference job), 1 more warm-up step, three
+           timed 10-step runs, median ms per step,
+           giant_T213L30_model_days_per_day, launches per step, idle share,
+           peak memory.
   moist_land
            the realistic-continents GCM (realistic_continents_test_case.py:
            GreyMoistConfig() T42L25 with the bucket, the idealized continents
@@ -147,32 +150,60 @@ Phases, each printed as one JSON line:
            range. The cloud-base level klcl and the PBL top z_pbl are
            discrete choices, held by counting the columns whose choice
            differs (CHOICE_FIELDS). sw_flux 0.
+  namelist exp/namelists/mima.nml built through isca_tpu_torch.namelist on
+           the card at float32, "highest": T42L40, dt = 600 s, RRTM with
+           dt_rad = 7200 s (n_rad = 12), simple Betts-Miller, q-flux, a
+           100 m slab. 3 steps against the CPU's float32 and float64 runs (a
+           cpu_reference job) by the 3x rule, then 12 steps timed one by one
+           (step 13 the radiation step), sw_flux at steps 1 and 13;
+           held_suarez.nml (at the `dycore` phase's T85) and frierson.nml
+           built through the reader and compared field by field with the
+           `dycore` and `moist` phases' configurations: the namelists are
+           transcriptions that differ from them in the fields named in
+           NAMELIST_PHASE_DIFFS, which must be exactly those, each with the
+           namelist's value given there.
+  giant_t213_compare
+           the `giant` phase's 3 T213L30 card steps against the CPU's
+           float32 and float64 runs (a cpu_reference job) by the 3x rule;
+           `sharded` then holds its T213L30 giant to the same CPU runs.
   sharded  the sharded run (isca_tpu_torch.parallel.mesh): 2 ranks spawned
            on the one card over gloo, which stages its collectives through
-           the host. HS T85L25 and Frierson T42L25 (the `dycore` and `moist`
-           configurations with PrimitiveConfig(mesh=...)), float32, 3 steps
-           sharded from cold start, the gathered fields held by the 3x rule
-           against the CPU runs of `dycore` and `moist` and compared with
-           those phases' 3 card steps on one device; each rank's m rows and
-           its spectral block distinct; an HS tile restart written by both
-           ranks, read back into each rank's blocks and combined into one
-           file, both bit-equal; 10 timed steps (ms per step), then 10 with
-           every all_to_all and all_reduce synchronised and timed (their
-           share of that step). A correctness run on one card, not a
-           scaling number. sw_flux must not launch. With two or more
-           cards the same again over NCCL, one card per rank; with one, a
-           line says so.
-The CPU's float32 and float64 runs that mima_gwd, continents_sst and
-ras_bl compare with are made by two worker processes (two threads each,
-`cpu_reference`), started after the build, so that they run beside the
-earlier phases; the earlier phases' card timings share the host with them.
+           the host. Every model isca_tpu shards, each the configuration of
+           its single-card phase with a mesh: HS T85L25, Frierson T42L25,
+           MiMA T42L25 (sw_flux on each rank's 32 x 128 columns), the
+           SOCRATES aquaplanet with clouds T42L25 (moist start), the
+           realistic continents with topography and the bucket, and
+           continents_sst with its series and mg_drag (the land, the
+           topography and the series built on the whole globe, each rank
+           keeping its band), the giant planet T213L30 and shallow water
+           T85; float32, 3 steps sharded from cold start, the gathered
+           fields held by the 3x rule against the single-card phases' CPU
+           runs (COMPARE_REFS; the giant's those of giant_t213_compare)
+           and compared with those phases' 3 card
+           steps on one device; each rank's m rows and its spectral block
+           distinct; each rank's sw_flux launches (one per step for MiMA
+           and SOCRATES, 0 for the others); HS and MiMA tile restarts
+           written by both ranks, read back into each rank's blocks and
+           combined into one file, all bit-equal; 5 timed steps (ms per
+           step), then 5 with every all_to_all and all_reduce synchronised
+           and timed (their share of that step). A correctness run on one
+           card, not a scaling number. With two or more cards the same
+           again over NCCL, one card per rank; with one, a line says so.
+The CPU's float32 and float64 runs that simple_clouds, mima_gwd,
+continents_sst, ras_bl, namelist and giant_t213_compare compare with are
+made by two worker processes (`cpu_reference`: simple_clouds' first, on four
+threads, the others on two), started after the build, so that they run
+beside the earlier phases; the earlier phases' card timings share the host
+with them.
 The two mima phases run after `moist_rrtm`, then the three cloud and
 SOCRATES phases, then simple, giant, moist_land, mima_gwd, continents_sst
 and ras_bl; sw_flux must not launch on the paths of simple, giant,
 moist_land, continents_sst and ras_bl (its count on each is printed). `experiment` also runs the stirred
 barotropic model in two chained one-day segments, held to the bit (the
-stirring key too) against one direct two-day run.
-Then the `{"kernels": [...]}` summary line, the raw `nvidia-smi` name and
+stirring key too) against one direct two-day run. `namelist`,
+`giant_t213_compare` and `sharded` run last. Then a `summary` line with each phase's seconds, the
+`{"kernels": [...]}` summary line (its launches_by_path: each path's
+sw_flux count, the sharded models' per rank), the raw `nvidia-smi` name and
 power limit line, and last `{"ok": true, "device": {...}}`. Any failed phase
 raises, so the script exits non-zero and prints no last line; so does a run
 without a CUDA device.
@@ -361,6 +392,11 @@ def check_sw_flux(name, batch, L, cloudy, G=112):
 def phase_kernels():
     return [check_sw_flux("t42_clear", (8192,), 25, False),
             check_sw_flux("t42_cloudy", (8192,), 25, True),
+            # the namelist MiMA (T42L40) and one of 2 ranks' bands at T42L25
+            check_sw_flux("mima_nml_t42l40_clear", (8192,), 40, False),
+            check_sw_flux("mima_nml_t42l40_cloudy", (8192,), 40, True),
+            check_sw_flux("rank_band_clear", (4096,), 25, False),
+            check_sw_flux("rank_band_cloudy", (4096,), 25, True),
             check_sw_flux("socrates_clear", (8192,), 25, False, G=SOCRATES_G),
             check_sw_flux("socrates_cloudy", (8192,), 25, True, G=SOCRATES_G),
             check_sw_flux("odd_clear", (7,), 5, False),
@@ -680,7 +716,8 @@ def phase_dycore_profile(model, state, ms_per_step, steps=2):
 # moist: the grey-moist Frierson aquaplanet GCM at T42L25
 # ---------------------------------------------------------------------------
 
-FR_COMPARE_STEPS, FR_WARMUP_STEPS, FR_TIMED_STEPS, FR_TIMED_RUNS = 3, 6, 20, 3
+# 3 timed runs of 10 steps keep the whole script well inside its time limit
+FR_COMPARE_STEPS, FR_WARMUP_STEPS, FR_TIMED_STEPS, FR_TIMED_RUNS = 3, 6, 10, 3
 FR_RRTM_STEPS = 3
 FR_FIELDS = ("ps", "ucomp", "vcomp", "temp", "vor", "div", "omega", "sphum", "t_surf")
 # as HS_TOL_FACTOR: the card against the CPU at float32, per field, within
@@ -854,6 +891,7 @@ def phase_mima():
     gpu, gpu_conv, state = _mima_compare_run(model)
     compare, ok = gap_compare(gpu, cpu["float32"][0], cpu["float64"][0], FR_TOL_FACTOR,
                               MIMA_FIELDS)
+    COMPARE_REFS["mima"] = (gpu, cpu["float32"][0], cpu["float64"][0])
     flips = {"card_vs_cpu_f32": int((gpu_conv != cpu["float32"][1]).sum()),
              "cpu_f32_vs_f64": int((cpu["float32"][1] != cpu["float64"][1]).sum()),
              "convecting_columns_cpu_f64": int(cpu["float64"][1].sum())}
@@ -970,6 +1008,12 @@ CLOUD_PHASES = {
 }
 
 
+# the cloud phases whose CPU float32 and float64 moist-start runs are a
+# cpu_reference job (the threads it gets): simple_clouds' (RRTMG-LW's cloudy
+# sweeps at T42L25) are the script's longest CPU runs, submitted first
+CLOUD_CPU_REFS = {"simple_clouds": 4}
+
+
 def cloud_phase_config(name, dtype, moist_start=False):
     """The phase's exp test case as written (T42L25, dt = 720 s) with exact
     transforms; moist_start sets the initial humidity to MOIST_START_SPHUM."""
@@ -994,9 +1038,19 @@ def _cloud_compare_run(model):
     return fields
 
 
-def phase_cloud_gcm(name):
+def cloud_cpu_runs(name):
+    """The CPU's float32 and float64 runs of a cloud phase's comparison."""
+    from isca_tpu_torch.models.moist import GreyMoistModel
+
+    return tuple(_cloud_compare_run(GreyMoistModel(
+        cloud_phase_config(name, dtype, moist_start=True), device="cpu"))
+        for dtype in (torch.float32, torch.float64))
+
+
+def phase_cloud_gcm(name, cpu_refs):
     """One of CLOUD_PHASES on the card: 3 moist-start steps against the CPU
-    by the 3x rule, then the test case as written: CLOUD_WARMUP_STEPS steps,
+    (its runs a cpu_reference job where CLOUD_CPU_REFS names the phase) by
+    the 3x rule, then the test case as written: CLOUD_WARMUP_STEPS steps,
     three timed CLOUD_TIMED_STEPS-step runs, sw_flux launches per step
     checked, a profile. Returns the launches of the path."""
     import warnings
@@ -1009,9 +1063,12 @@ def phase_cloud_gcm(name):
     with warnings.catch_warnings():
         # the committed RRTMG-LW k-tables are synthetic and say so
         warnings.simplefilter("ignore", RuntimeWarning)
-        cpu32, cpu64 = (_cloud_compare_run(GreyMoistModel(
-            cloud_phase_config(name, dtype, moist_start=True), device="cpu"))
-            for dtype in (torch.float32, torch.float64))
+        if name in cpu_refs:
+            cpu = cpu_refs[name].result()
+            cpu32, cpu64 = cpu["float32"][0], cpu["float64"][0]
+        else:
+            cpu32, cpu64 = cloud_cpu_runs(name)
+        wait_s = time.perf_counter() - t_phase
         torch.cuda.synchronize()
         rrtmg_sw.sw_flux_solve.launches = 0
         gpu = _cloud_compare_run(GreyMoistModel(
@@ -1019,6 +1076,7 @@ def phase_cloud_gcm(name):
         model = GreyMoistModel(cloud_phase_config(name, torch.float32))
     torch.cuda.synchronize()
     compare, ok = gap_compare(gpu, cpu32, cpu64, FR_TOL_FACTOR, tuple(gpu))
+    COMPARE_REFS[name] = (gpu, cpu32, cpu64)
     launches = rrtmg_sw.sw_flux_solve.launches
     if not ok or launches != per_step * FR_COMPARE_STEPS:
         raise RuntimeError(f"{name}: card and CPU runs disagree after {FR_COMPARE_STEPS} "
@@ -1045,6 +1103,7 @@ def phase_cloud_gcm(name):
           "dtype": str(core.dtype), "transform_precision": core.transform_precision,
           "width": f"full: {test_case} at T42L25 as written; nothing cut",
           "compare_steps": FR_COMPARE_STEPS, "compare_initial_sphum": MOIST_START_SPHUM,
+          "compare_cpu_runs_s": wait_s,
           "tolerance_factor": FR_TOL_FACTOR, "compare": compare, "compare_clouds": cloud,
           "warmup_steps": CLOUD_WARMUP_STEPS, "timed_runs": FR_TIMED_RUNS,
           "steps_per_run": CLOUD_TIMED_STEPS, "ms_per_step_runs": runs,
@@ -1166,6 +1225,7 @@ def _run_simple(kind):
     gpu = _simple_fields(model, state)
     compare, ok = gap_compare(gpu, cpu["float32"][0], cpu["float64"][0], SIMPLE_TOL_FACTOR,
                               list(gpu))
+    COMPARE_REFS[kind] = (gpu, cpu["float32"][0], cpu["float64"][0])
     # the first step's draws, and the key and next draws after the compared steps
     bits_equal = (_draws_bit_equal(state0.rng, cpu["float32"][1])
                   and _draws_bit_equal(state.rng, cpu["float32"][2])
@@ -1260,8 +1320,11 @@ def phase_giant():
 
     model = giant_planet_model(dtype=torch.float32, **GIANT_BIG)
     T = model.core.T
-    state = model.run(model.initial_state(), 1, first=True)
-    state, warmup_s, runs = _timed_runs(model, state, GIANT_WARMUP_STEPS - 1,
+    # the T213L30 card fields after 3 steps, which `giant_t213_compare`
+    # holds to the CPU's (cpu_reference "giant_t213") and `sharded` to its own
+    big, state = _diag_compare_run(model, model.initial_state(), GIANT_FIELDS)[::2]
+    COMPARE_REFS["giant"] = big
+    state, warmup_s, runs = _timed_runs(model, state, GIANT_WARMUP_STEPS - GIANT_COMPARE_STEPS,
                                         GIANT_TIMED_STEPS, GIANT_TIMED_RUNS)
     sw_launches = rrtmg_sw.sw_flux_solve.launches
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
@@ -1274,8 +1337,8 @@ def phase_giant():
           "levels": core.num_levels, "dt": core.dt, "cutoff_wn": core.cutoff_wn,
           "dtype": str(core.dtype),
           "width": "full: the reference test case's T213L30; nothing cut",
-          "compare_at": "giant_planet_model() defaults, T42L30 (a float64 CPU run at "
-                        "T213L30 would take minutes)",
+          "compare_at": "giant_planet_model() defaults, T42L30 (T213L30 in the "
+                        "giant_t213_compare phase)",
           "compare_steps": GIANT_COMPARE_STEPS, "tolerance_factor": FR_TOL_FACTOR,
           "compare": compare, "warmup_steps": GIANT_WARMUP_STEPS, "warmup_s": warmup_s,
           "timed_runs": GIANT_TIMED_RUNS, "steps_per_run": GIANT_TIMED_STEPS,
@@ -1297,17 +1360,18 @@ def phase_giant():
 LAND_FIELDS = FR_FIELDS + ("bucket_depth",)
 
 
-def continents_model(dtype, device=None, continents_sst=False):
+def continents_model(dtype, device=None, continents_sst=False, mesh=None):
     """exp/test_cases/realistic_continents_test_case.py: GreyMoistConfig()
     (T42L25, dt = 720 s) with the bucket, the idealized continents and the
     Sauliere 2012 topography band-limited through the model's truncation;
     continents_sst adds cases.py's prescribed ocean SSTs, sea ice and
-    orographic drag (hprime 300 m over land)."""
+    orographic drag (hprime 300 m over land). On `mesh` every field is
+    built on the whole globe and each rank keeps its band."""
     from isca_tpu_torch.models import cases
     from isca_tpu_torch.models.moist import GreyMoistModel
 
     return cases.set_continents(GreyMoistModel(cases.continents_config(
-        dtype, continents_sst, transform_precision="highest"), device=device))
+        dtype, continents_sst, transform_precision="highest", mesh=mesh), device=device))
 
 
 def phase_moist_land():
@@ -1323,6 +1387,7 @@ def phase_moist_land():
     T = model.core.T
     gpu, state = _gcm_compare_run(model, LAND_FIELDS, FR_COMPARE_STEPS)
     compare, ok = gap_compare(gpu, cpu["float32"], cpu["float64"], FR_TOL_FACTOR, LAND_FIELDS)
+    COMPARE_REFS["continents"] = (gpu, cpu["float32"], cpu["float64"])
     if not ok:
         raise RuntimeError(f"moist_land: card and CPU runs disagree after {FR_COMPARE_STEPS} "
                            f"steps: {compare}")
@@ -1388,6 +1453,9 @@ RAS_BL_STARTS = {"RAS": "convective", "mellor_yamada": "cold", "edt": "cold",
 # (mima_gwd's RRTMG-LW at float64) is submitted first.
 NEW_PATHS = ("mima_gwd", "RAS", "continents_sst", "mellor_yamada", "edt", "entrain",
              "stable_bl")
+# the CPU runs of the `namelist` phase and of the giant's T213L30
+# (giant_t213_compare), submitted after NEW_PATHS' (they are needed last)
+LATE_CPU_REFS = ("namelist_mima", "giant_t213")
 CPU_REF_WORKERS, CPU_REF_THREADS = 2, 2
 # The four boundary-layer variants compare 3 steps with the CPU at T21L25
 # (their timed runs are at T42L25): the CPU's float32 and float64 runs at
@@ -1434,6 +1502,12 @@ def new_path_spec(name):
     from isca_tpu_torch.models.moist import GreyMoistModel
 
     cold = lambda model: model.initial_state()
+    if name == "giant_t213":
+        from isca_tpu_torch.models.giant import giant_planet_model
+        return (lambda dtype, device: giant_planet_model(dtype=dtype, device=device,
+                                                         **GIANT_BIG), GIANT_FIELDS, cold)
+    if name == "namelist_mima":
+        return namelist_model, MIMA_FIELDS, cold
     if name == "mima_gwd":
         return (lambda dtype, device: cases.add_mima_series(GreyMoistModel(
             cases.mima_gwd_config(dtype, transform_precision="highest"), device=device)),
@@ -1451,20 +1525,26 @@ def new_path_spec(name):
 
 
 def cpu_reference(name, threads=CPU_REF_THREADS):
-    """The CPU's float32 and float64 runs of a new path's comparison:
-    {dtype name: (fields, convecting columns)}. Runs in a worker process of
-    `threads` threads beside the card's earlier phases."""
+    """The CPU's float32 and float64 runs of a new path's or a cloud
+    phase's comparison: {dtype name: (fields, convecting columns or None)}.
+    Runs in a worker process of `threads` threads beside the card's earlier
+    phases."""
     import warnings
 
     torch.set_num_threads(threads)
-    build, fields, start = new_path_spec(name)
+    t0 = time.perf_counter()
     out = {}
     with warnings.catch_warnings():
         # the committed RRTMG-LW k-tables are synthetic and say so
         warnings.simplefilter("ignore", RuntimeWarning)
-        for dname, dtype in (("float32", torch.float32), ("float64", torch.float64)):
-            model = build(dtype, "cpu")
-            out[dname] = _diag_compare_run(model, start(model), fields)[:2]
+        if name in CLOUD_PHASES:
+            out["float32"], out["float64"] = ((f, None) for f in cloud_cpu_runs(name))
+        else:
+            build, fields, start = new_path_spec(name)
+            for dname, dtype in (("float32", torch.float32), ("float64", torch.float64)):
+                model = build(dtype, "cpu")
+                out[dname] = _diag_compare_run(model, start(model), fields)[:2]
+    out["seconds"] = time.perf_counter() - t0
     return out
 
 
@@ -1487,6 +1567,7 @@ def _new_path_compare(name, cpu_ref):
     rrtmg_sw.sw_flux_solve.launches = 0
     gpu, gpu_conv, state = _diag_compare_run(model, start(model), fields)
     compare, ok = gap_compare(gpu, cpu["float32"][0], cpu["float64"][0], FR_TOL_FACTOR, cont)
+    COMPARE_REFS[name] = (gpu, cpu["float32"][0], cpu["float64"][0])
     choices, ok_c = _choices(gpu, cpu["float32"][0], cpu["float64"][0], choice)
     flips = None
     if gpu_conv is not None:
@@ -1961,22 +2042,222 @@ def _experiment_barotropic(tmp, timings):
 
 
 # ---------------------------------------------------------------------------
+# namelist: exp/namelists/mima.nml through the port's namelist reader
+# ---------------------------------------------------------------------------
+
+NAMELIST_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "exp", "namelists")
+# steps 4-15 after the 3 compared: mima.nml's dt_rad = 7200 s at dt = 600 s
+# is n_rad = 12, so step 13 computes radiation and the others reuse it
+NAMELIST_TIMED_STEPS = 12
+# The reference namelists are transcriptions of the test cases' namelist
+# dicts; the `dycore` and `moist` phases run bench.py's HS configuration and
+# frierson_test_case_config(). Built through the reader (HS at the `dycore`
+# phase's T85, both at float32) they differ from those in exactly these
+# fields, each with the namelist's value here (its repr), which the phase
+# checks and prints beside the phase's value.
+UNEVEN_SIGMA = "(('scale_heights', 6.0), ('surf_res', 0.5), ('exponent', 7.5))"
+NAMELIST_PHASE_DIFFS = {
+    "held_suarez.nml": {".core.vert_coord_option": "'uneven_sigma'",
+                        ".core.vert_coord_kwargs": UNEVEN_SIGMA,
+                        ".core.reference_sea_level_press": "100000.0",
+                        ".core.damping_order": "4",
+                        ".core.water_correction_limit": "20000.0",
+                        ".core.valid_range_t": "(100.0, 800.0)"},
+    "frierson.nml": {".core.vert_coord_option": "'uneven_sigma'",
+                     ".core.vert_coord_kwargs": UNEVEN_SIGMA,
+                     ".physics.surface.use_virtual_temp": "False",
+                     ".physics.surface.do_simple": "True",
+                     ".physics.betts_miller.rhbm": "0.7"},
+}
+
+
+def read_namelist(name):
+    from isca_tpu_torch.namelist import parse_namelist
+
+    with open(os.path.join(NAMELIST_DIR, name)) as f:
+        return parse_namelist(f.read())
+
+
+def namelist_model(dtype, device=None, name="mima.nml", **overrides):
+    """The model of a reference namelist through isca_tpu_torch.namelist at
+    `dtype` with exact transforms (mima.nml: T42L40, dt = 600 s, RRTM with
+    dt_rad = 7200 s, simple Betts-Miller, q-flux, a 100 m slab)."""
+    from isca_tpu_torch.namelist import model_from_namelist
+
+    return model_from_namelist(read_namelist(name), device=device, dtype=dtype,
+                               transform_precision="highest", **overrides)
+
+
+def config_diffs(a, b, path=""):
+    """{dotted path: (a's value, b's value)} of the fields in which two
+    configurations differ, descending into nested dataclasses."""
+    if dataclasses.is_dataclass(a) and type(a) is type(b):
+        out = {}
+        for f in dataclasses.fields(a):
+            out.update(config_diffs(getattr(a, f.name), getattr(b, f.name),
+                                    f"{path}.{f.name}"))
+        return out
+    return {} if a == b else {path: (repr(a), repr(b))}
+
+
+def phase_namelist(cpu_refs):
+    """mima.nml through the port's namelist reader on the card: 3 steps
+    against the CPU by the 3x rule, NAMELIST_TIMED_STEPS steps timed one by
+    one (step 13 the radiation step), sw_flux at steps 1 and 13; then
+    held_suarez.nml and frierson.nml against the `dycore` and `moist`
+    phases' configurations, field by field. Returns the path's launches."""
+    import warnings
+
+    from isca_tpu_torch.physics import rrtmg_sw
+
+    t_phase = time.perf_counter()
+    with warnings.catch_warnings():
+        # the committed RRTMG-LW k-tables are synthetic and say so
+        warnings.simplefilter("ignore", RuntimeWarning)
+        report, state, model = _new_path_compare("namelist_mima", cpu_refs["namelist_mima"])
+    core, pc, T = model.config.core, model.config.physics, model.core.T
+    shape = (core.resolution, core.num_levels, core.dt, pc.radiation_scheme, pc.dt_rad)
+    if shape != ("T42", 40, 600.0, "rrtm", 7200.0) or model.physics.radiation.lw_rrtmg is None:
+        raise RuntimeError(f"namelist: mima.nml built {shape}, not T42L40 RRTM dt_rad 7200")
+    compare_launches = rrtmg_sw.sw_flux_solve.launches
+    step_ms, at = [], []
+    for i in range(NAMELIST_TIMED_STEPS):
+        before = rrtmg_sw.sw_flux_solve.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = model.step(state)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        at.extend([FR_COMPARE_STEPS + i + 1] * (rrtmg_sw.sw_flux_solve.launches - before))
+    launches = rrtmg_sw.sw_flux_solve.launches
+    t_range = _gcm_valid("namelist", model, state)
+    if compare_launches != 1 or at != [13]:
+        raise RuntimeError(f"namelist: sw_flux launched {compare_launches} times in the "
+                           f"{FR_COMPARE_STEPS} compared steps and at steps {at} after, "
+                           "expected once, then at step 13")
+    configs = {}
+    for name, (phase, reference, overrides) in {
+            "held_suarez.nml": ("dycore", hs_config, {"resolution": "T85"}),
+            "frierson.nml": ("moist", frierson_config, {})}.items():
+        built = namelist_model(torch.float32, "cpu", name, **overrides).config
+        diffs = config_diffs(built, reference(torch.float32))
+        configs[name] = {"against": phase, "overrides": overrides, "diffs": diffs}
+        got = {k: built_value for k, (built_value, _) in diffs.items()}
+        if got != NAMELIST_PHASE_DIFFS[name]:
+            raise RuntimeError(f"namelist: {name} differs from the {phase} phase's "
+                               f"configuration in {got}, expected "
+                               f"{NAMELIST_PHASE_DIFFS[name]}")
+    timed = [ms for i, ms in enumerate(step_ms) if FR_COMPARE_STEPS + i + 1 not in at]
+    emit({"phase": "namelist", "model": "exp/namelists/mima.nml through "
+          "isca_tpu_torch.namelist", "resolution": core.resolution,
+          "grid": [T.nlat, T.nlon], "levels": core.num_levels, "dt": core.dt,
+          "dt_rad": pc.dt_rad, "dtype": str(core.dtype),
+          "transform_precision": core.transform_precision,
+          "width": "full: the reference namelist's T42L40; nothing cut", **report,
+          "timed_steps": NAMELIST_TIMED_STEPS, "ms_per_step": step_ms,
+          "radiation_step_ms": [step_ms[s - FR_COMPARE_STEPS - 1] for s in at],
+          "ms_per_step_median_without_radiation": statistics.median(timed),
+          "ms_per_step_mean": statistics.fmean(step_ms),
+          "metric": "mima_nml_T42L40_model_days_per_day",
+          "value": core.dt / (statistics.fmean(step_ms) * 1e-3),
+          "unit": "model-days/day (one GPU), mean over one radiation interval",
+          "sw_flux_at_steps": [1] + at, "sw_flux_launches": launches, "t_range": t_range,
+          "peak_memory_mb": torch.cuda.max_memory_allocated() / 2**20,
+          "configs": configs, "phase_seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # sharded: the port's mesh path, ranks spawned on the card
 # ---------------------------------------------------------------------------
 
 SHARDED_RANKS = 2
-SHARDED_TIMED_STEPS = 10
-SHARDED_MODELS = {"held_suarez": HS_FIELDS, "frierson": FR_FIELDS}
+SHARDED_TIMED_STEPS = 5
+# every model isca_tpu shards: name -> the fields compared after
+# HS_COMPARE_STEPS steps with the single-card phase's CPU runs (COMPARE_REFS)
+SHARDED_MODELS = {"held_suarez": HS_FIELDS, "frierson": FR_FIELDS,
+                  "mima": MIMA_FIELDS, "socrates_cloud": FR_FIELDS + ("olr", "cf"),
+                  "continents": LAND_FIELDS, "continents_sst": SST_FIELDS,
+                  "giant": GIANT_FIELDS, "shallow": ("ucomp", "vcomp", "vor", "div", "h")}
+# sw_flux launches per step on each rank (every step is a radiation step)
+SHARDED_SW_FLUX_PER_STEP = {"mima": 1, "socrates_cloud": 1}
+# the models whose tile restart each rank writes and reads back
+SHARDED_TILES = ("held_suarez", "mima")
 
 
 def _sharded_model(name, mesh):
-    """The `dycore` or `moist` model at float32 on the mesh."""
+    """The single-card phase's model of `name` at float32 on the mesh."""
     from isca_tpu_torch.models.dry import HeldSuarezModel
+    from isca_tpu_torch.models.giant import giant_planet_model
     from isca_tpu_torch.models.moist import GreyMoistModel
+    from isca_tpu_torch.models.shallow import ShallowModel
 
-    cfg = hs_config(torch.float32) if name == "held_suarez" else frierson_config(torch.float32)
+    f32 = torch.float32
+    if name == "giant":
+        return giant_planet_model(dtype=f32, mesh=mesh, **GIANT_BIG)
+    if name == "shallow":
+        return ShallowModel(simple_config("shallow", f32), mesh=mesh)
+    if name in ("continents", "continents_sst"):
+        return continents_model(f32, continents_sst=name == "continents_sst", mesh=mesh)
+    cfg = {"held_suarez": lambda: hs_config(f32), "frierson": lambda: frierson_config(f32),
+           "mima": lambda: mima_config(f32),
+           "socrates_cloud": lambda: cloud_phase_config("socrates_cloud", f32,
+                                                        moist_start=True)}[name]()
     cfg = dataclasses.replace(cfg, core=dataclasses.replace(cfg.core, mesh=mesh))
     return HeldSuarezModel(cfg) if name == "held_suarez" else GreyMoistModel(cfg)
+
+
+def _sharded_compare_run(model, fields, mesh, nlat):
+    """HS_COMPARE_STEPS steps from cold start, the last with the physics
+    diagnostics where the model has them (as each single-card phase runs
+    them): the named fields gathered from the ranks, as float64 numpy."""
+    from isca_tpu_torch.parallel.mesh import gather_pytree
+
+    state = model.initial_state()
+    if hasattr(model, "step_with_diagnostics"):
+        state = model.run(state, HS_COMPARE_STEPS - 1)
+        state, diag = model.step_with_diagnostics(state)
+        diag = dict(diag, bucket_depth=state.bucket_depth.curr)
+    else:
+        state = model.run(state, HS_COMPARE_STEPS)
+        diag = model.diag_fields(state)
+    got = gather_pytree(mesh, {k: diag[k] for k in fields}, nlat=nlat)
+    return {k: v.cpu().numpy().astype(np.float64) for k, v in got.items()}, state
+
+
+def _spectral_block(state):
+    """The rank's block of the spectral temperature (vorticity for shallow
+    water)."""
+    return state.vors.curr if hasattr(state, "vors") else (
+        state.ts.curr if hasattr(state, "ts") else state.dyn.ts.curr)
+
+
+def _sharded_tiles(name, model, state, mesh, nlat, outdir, rep):
+    """The state's tile restart: written by every rank, read back into its
+    blocks, and combined into one file on rank 0; all bit-equal."""
+    import torch.distributed as dist
+    from isca_tpu_torch.io import distributed as dio
+    from isca_tpu_torch.io.restart import load_restart
+    from isca_tpu_torch.parallel.mesh import gather_pytree
+    from isca_tpu_torch.utils.tree import flatten_with_paths
+
+    tiles = os.path.join(outdir, f"{name}_tiles")
+    dio.save_restart_sharded(tiles, state, mesh, nlat=nlat)
+    dist.barrier()
+    loaded = dio.load_restart_sharded(tiles, model.initial_state(), mesh)
+    rep["tile_blocks_bit_equal"] = all(
+        a.dtype == b.dtype and a.device == b.device and torch.equal(a, b)
+        for (_, a), (_, b) in zip(flatten_with_paths(state), flatten_with_paths(loaded)))
+    whole = gather_pytree(mesh, state, nlat=nlat)
+    if mesh.rank == 0:
+        combined = os.path.join(outdir, f"{name}_combined.npz")
+        dio.combine_restart_tiles(tiles, combined)
+        back = load_restart(combined, whole)
+        rep["combined_bit_equal"] = all(
+            torch.equal(a, b) for (_, a), (_, b) in
+            zip(flatten_with_paths(whole), flatten_with_paths(back)))
+        rep["tile_mb"] = sum(os.path.getsize(os.path.join(tiles, f))
+                             for f in os.listdir(tiles)) / 2**20
 
 
 @contextlib.contextmanager
@@ -2021,28 +2302,28 @@ def _sharded_steps(model, state, steps):
 
 def sharded_rank(rank, outdir):
     """One rank of `sharded` (spawned): each model 3 steps on the mesh, its
-    gathered fields (rank 0 writes them), its blocks, the HS tile restart,
-    the timed runs; the rank's report in outdir/rank<r>.json."""
-    import torch.distributed as dist
-    from isca_tpu_torch.io import distributed as dio
-    from isca_tpu_torch.io.restart import load_restart
-    from isca_tpu_torch.parallel.mesh import gather_pytree, make_mesh
-    from isca_tpu_torch.physics import rrtmg_sw
-    from isca_tpu_torch.utils.tree import flatten_with_paths
+    gathered fields (rank 0 writes them), its blocks, the tile restarts,
+    the timed runs, its sw_flux launches; the rank's report in
+    outdir/rank<r>.json."""
+    import warnings
 
+    import torch.distributed as dist
+    from isca_tpu_torch.parallel.mesh import make_mesh
+    from isca_tpu_torch.physics import rrtmg_sw
+
+    warnings.simplefilter("ignore", RuntimeWarning)   # the synthetic LW k-tables say so
     mesh = make_mesh(SHARDED_RANKS)
     report = {"rank": rank, "device": str(mesh.device), "backend": mesh.backend}
     for name, fields in SHARDED_MODELS.items():
+        t0 = time.perf_counter()
         model = _sharded_model(name, mesh)
-        T = model.core.T
-        state = model.run(model.initial_state(), HS_COMPARE_STEPS)
-        got = gather_pytree(mesh, {k: v for k, v in model.diag_fields(state).items()
-                                   if k in fields}, nlat=T.nlat)
+        T = model.core.T if hasattr(model, "core") else model.T
+        torch.cuda.synchronize()
+        rrtmg_sw.sw_flux_solve.launches = 0
+        got, state = _sharded_compare_run(model, fields, mesh, T.nlat)
         if rank == 0:
-            np.savez(os.path.join(outdir, f"{name}.npz"),
-                     **{k: v.cpu().numpy().astype(np.float64) for k, v in got.items()})
-        dyn = state if name == "held_suarez" else state.dyn
-        blocks = mesh.all_gather(dyn.ts.curr[None], 0)
+            np.savez(os.path.join(outdir, f"{name}.npz"), **got)
+        blocks = mesh.all_gather(_spectral_block(state)[None], 0)
         rep = {"m_rows": [T.m_start, T.m_start + T.spec_shape[0]],
                "lat_rows": [T.lat_start, T.lat_start + T.grid_shape[0]],
                "m_blocks_distinct": not torch.equal(blocks[0], blocks[1])}
@@ -2052,31 +2333,20 @@ def sharded_rank(rank, outdir):
         with _timed_collectives() as acc:
             state, rep["instrumented_ms_per_step"] = _sharded_steps(
                 model, state, SHARDED_TIMED_STEPS)
+        torch.cuda.synchronize()
+        rep["sw_flux_launches"] = rrtmg_sw.sw_flux_solve.launches
+        rep["steps"] = HS_COMPARE_STEPS + 2 * SHARDED_TIMED_STEPS
         for n, (calls, seconds) in acc.items():
             rep[n] = {"calls_per_step": calls / SHARDED_TIMED_STEPS,
                       "ms_per_step": 1e3 * seconds / SHARDED_TIMED_STEPS,
                       "share_of_instrumented_step":
                           1e3 * seconds / SHARDED_TIMED_STEPS / rep["instrumented_ms_per_step"]}
-        if name == "held_suarez":
-            tiles = os.path.join(outdir, "tiles")
-            dio.save_restart_sharded(tiles, state, mesh, nlat=T.nlat)
-            dist.barrier()
-            loaded = dio.load_restart_sharded(tiles, model.initial_state(), mesh)
-            rep["tile_blocks_bit_equal"] = all(
-                a.dtype == b.dtype and torch.equal(a, b) for (_, a), (_, b) in
-                zip(flatten_with_paths(state), flatten_with_paths(loaded)))
-            whole = gather_pytree(mesh, state, nlat=T.nlat)
-            if rank == 0:
-                combined = os.path.join(outdir, "combined.npz")
-                dio.combine_restart_tiles(tiles, combined)
-                back = load_restart(combined, whole)
-                rep["combined_bit_equal"] = all(
-                    torch.equal(a, b) for (_, a), (_, b) in
-                    zip(flatten_with_paths(whole), flatten_with_paths(back)))
-                rep["tile_mb"] = sum(os.path.getsize(os.path.join(tiles, f))
-                                     for f in os.listdir(tiles)) / 2**20
+        if name in SHARDED_TILES:
+            _sharded_tiles(name, model, state, mesh, T.nlat, outdir, rep)
+        rep["seconds"] = time.perf_counter() - t0
         report[name] = rep
-    report["sw_flux_launches"] = getattr(rrtmg_sw.sw_flux_solve, "launches", 0)
+        del model, state
+        torch.cuda.empty_cache()
     with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
         json.dump(report, f)
 
@@ -2097,7 +2367,7 @@ def _sharded_run(backend):
         out = {"backend": backend, "ranks": SHARDED_RANKS,
                "devices": [r["device"] for r in ranks],
                "backends": [r["backend"] for r in ranks],
-               "sw_flux_launches": sum(r["sw_flux_launches"] for r in ranks)}
+               "timed_steps": SHARDED_TIMED_STEPS}
         failures = []
         for name, fields in SHARDED_MODELS.items():
             with np.load(os.path.join(tmp, f"{name}.npz")) as data:
@@ -2105,11 +2375,14 @@ def _sharded_run(backend):
             card, cpu32, cpu64 = COMPARE_REFS[name]
             compare, ok = gap_compare(got, cpu32, cpu64, HS_TOL_FACTOR, fields)
             rows = [r[name]["m_rows"] for r in ranks]
+            launches = [r[name]["sw_flux_launches"] for r in ranks]
+            want = SHARDED_SW_FLUX_PER_STEP.get(name, 0) * ranks[0][name]["steps"]
             model = {"compare_steps": HS_COMPARE_STEPS, "tolerance_factor": HS_TOL_FACTOR,
                      "compare": compare,
                      "sharded_vs_one_card": {k: float(np.abs(got[k] - card[k]).max())
                                              for k in fields},
                      "m_rows": rows, "lat_rows": [r[name]["lat_rows"] for r in ranks],
+                     "sw_flux_launches_per_rank": launches, "sw_flux_expected_per_rank": want,
                      "ranks": [{k: v for k, v in r[name].items()
                                 if k not in ("m_rows", "lat_rows")} for r in ranks]}
             if not ok:
@@ -2117,24 +2390,48 @@ def _sharded_run(backend):
             if len({tuple(x) for x in rows}) != SHARDED_RANKS or not all(
                     r[name]["m_blocks_distinct"] for r in ranks):
                 failures.append(f"{name}: the ranks' m blocks are not distinct: {rows}")
+            if any(n != want for n in launches):
+                failures.append(f"{name}: sw_flux launched {launches} times on the ranks, "
+                                f"expected {want} on each")
+            if name in SHARDED_TILES:
+                tiles = [r[name] for r in ranks]
+                if not (all(t["tile_blocks_bit_equal"] for t in tiles)
+                        and tiles[0]["combined_bit_equal"]):
+                    failures.append(f"{name}: the tile restart did not load back bit-equal")
             out[name] = model
-        hs = [r["held_suarez"] for r in ranks]
-        if not (all(h["tile_blocks_bit_equal"] for h in hs) and hs[0]["combined_bit_equal"]):
-            failures.append(f"held_suarez: the tile restart did not load back bit-equal: {hs}")
-        if out["sw_flux_launches"] != 0:
-            failures.append(f"sw_flux launched {out['sw_flux_launches']} times")
     out["phase_seconds"] = time.perf_counter() - t0
     if failures:
         raise RuntimeError("sharded: " + "; ".join(failures))
     return out
 
 
+def phase_giant_t213_compare(cpu_refs):
+    """The `giant` phase's 3 T213L30 card steps against the CPU's float32
+    and float64 runs by the 3x rule; keeps all three for `sharded`."""
+    t0 = time.perf_counter()
+    cpu = cpu_refs["giant_t213"].result()
+    wait_s = time.perf_counter() - t0
+    card = COMPARE_REFS["giant"]
+    compare, ok = gap_compare(card, cpu["float32"][0], cpu["float64"][0], FR_TOL_FACTOR,
+                              GIANT_FIELDS)
+    emit({"phase": "giant_t213_compare", "model": "giant_planet_model", "resolution": "T213",
+          "levels": GIANT_BIG["num_levels"], "dtype": "torch.float32",
+          "compare_steps": FR_COMPARE_STEPS, "tolerance_factor": FR_TOL_FACTOR,
+          "compare": compare, "cpu_reference_wait_s": wait_s})
+    if not ok:
+        raise RuntimeError(f"giant_t213_compare: card and CPU runs disagree after "
+                           f"{FR_COMPARE_STEPS} steps at T213L30: {compare}")
+    COMPARE_REFS["giant"] = (card, cpu["float32"][0], cpu["float64"][0])
+
+
 def phase_sharded(smi):
-    """The sharded phase: gloo on this card; NCCL when there are two cards."""
+    """The sharded phase: gloo on this card; NCCL when there are two cards.
+    Returns each model's sw_flux launches per rank."""
     torch.cuda.empty_cache()
+    gloo = _sharded_run("gloo")
     emit({"phase": "sharded", "what": "correctness run of ranks sharing one card over "
           "gloo (staged through the host): not a scaling number", "nvidia_smi": smi,
-          **_sharded_run("gloo")})
+          **gloo})
     if torch.cuda.device_count() >= 2:
         emit({"phase": "sharded", "what": "ranks on their own cards over NCCL",
               "nvidia_smi": smi, **_sharded_run("nccl")})
@@ -2142,6 +2439,7 @@ def phase_sharded(smi):
         emit({"phase": "sharded", "backend": "nccl",
               "not_run": f"torch.cuda.device_count() is {torch.cuda.device_count()}: "
                          "NCCL needs one card per rank"})
+    return {name: gloo[name]["sw_flux_launches_per_rank"] for name in SHARDED_MODELS}
 
 
 def main():
@@ -2150,6 +2448,7 @@ def main():
         return 1
     from isca_tpu_torch import _build      # the package sets TF32 off on import
 
+    t_start = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi_name_power()
     emit({"phase": "device", "name": kind, "count": torch.cuda.device_count(),
@@ -2160,31 +2459,57 @@ def main():
     pool = ProcessPoolExecutor(max_workers=CPU_REF_WORKERS,
                                mp_context=multiprocessing.get_context("spawn"))
     try:
-        cpu_refs = {name: pool.submit(cpu_reference, name) for name in NEW_PATHS}
-        return _run_phases(kind, smi, cpu_refs)
+        cpu_refs = {name: pool.submit(cpu_reference, name, threads)
+                    for name, threads in CLOUD_CPU_REFS.items()}
+        cpu_refs.update({name: pool.submit(cpu_reference, name)
+                         for name in NEW_PATHS + LATE_CPU_REFS})
+        return _run_phases(kind, smi, cpu_refs, t_start)
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
 
 
-def _run_phases(kind, smi, cpu_refs):
-    """Every phase after the build, in order; the kernels summary, the
-    nvidia-smi line and the last line."""
-    cases = phase_kernels()
-    launches, model, state, ms_per_step = phase_slice()
-    phase_profile(model, state, ms_per_step)
-    hs_model, hs_state, hs_ms = phase_dycore()
-    phase_dycore_profile(hs_model, hs_state, hs_ms)
-    fr_model, fr_state, fr_ms = phase_moist()
-    phase_moist_profile(fr_model, fr_state, fr_ms)
-    rrtm_launches = phase_moist_rrtm()
-    mima_launches = {"mima": phase_mima(), "mima_dt_rad": phase_mima_dt_rad()}
-    cloud_launches = {name: phase_cloud_gcm(name) for name in CLOUD_PHASES}
-    new_paths = {**phase_simple(), **phase_giant(), **phase_moist_land()}
-    new_paths.update(mima_gwd=phase_mima_gwd(cpu_refs),
-                     continents_sst=phase_continents_sst(cpu_refs),
-                     ras_bl=phase_ras_bl(cpu_refs))
-    exp_launches = phase_experiment(hs_model, hs_ms, fr_model, fr_ms)
-    phase_sharded(smi)
+PHASE_SECONDS = {}
+
+
+def timed_phase(name, fn, *args):
+    """fn(*args), its wall seconds kept in PHASE_SECONDS[name]."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_SECONDS[name] = time.perf_counter() - t0
+    return out
+
+
+def _run_phases(kind, smi, cpu_refs, t_start):
+    """Every phase after the build, in order; the phase seconds, the kernels
+    summary, the nvidia-smi line and the last line."""
+    PHASE_SECONDS["device_and_build"] = time.perf_counter() - t_start
+    cases = timed_phase("kernels", phase_kernels)
+    launches, model, state, ms_per_step = timed_phase("slice", phase_slice)
+    timed_phase("profile", phase_profile, model, state, ms_per_step)
+    hs_model, hs_state, hs_ms = timed_phase("dycore", phase_dycore)
+    timed_phase("dycore_profile", phase_dycore_profile, hs_model, hs_state, hs_ms)
+    fr_model, fr_state, fr_ms = timed_phase("moist", phase_moist)
+    timed_phase("moist_profile", phase_moist_profile, fr_model, fr_state, fr_ms)
+    rrtm_launches = timed_phase("moist_rrtm", phase_moist_rrtm)
+    mima_launches = {"mima": timed_phase("mima", phase_mima),
+                     "mima_dt_rad": timed_phase("mima_dt_rad", phase_mima_dt_rad)}
+    cloud_launches = {name: timed_phase(name, phase_cloud_gcm, name, cpu_refs)
+                      for name in CLOUD_PHASES}
+    new_paths = {**timed_phase("simple", phase_simple), **timed_phase("giant", phase_giant),
+                 **timed_phase("moist_land", phase_moist_land)}
+    new_paths.update(mima_gwd=timed_phase("mima_gwd", phase_mima_gwd, cpu_refs),
+                     continents_sst=timed_phase("continents_sst", phase_continents_sst,
+                                                cpu_refs),
+                     ras_bl=timed_phase("ras_bl", phase_ras_bl, cpu_refs))
+    exp_launches = timed_phase("experiment", phase_experiment, hs_model, hs_ms, fr_model,
+                               fr_ms)
+    del hs_model, hs_state, fr_model, fr_state, model, state
+    namelist_launches = timed_phase("namelist", phase_namelist, cpu_refs)
+    timed_phase("giant_t213_compare", phase_giant_t213_compare, cpu_refs)
+    sharded_launches = timed_phase("sharded", phase_sharded, smi)
+    emit({"phase": "summary", "phase_seconds": PHASE_SECONDS,
+          "cpu_reference_seconds": {k: f.result()["seconds"] for k, f in cpu_refs.items()},
+          "script_seconds_before_summary": time.perf_counter() - t_start})
     main_case = cases[0]                      # the main path's shape and variant
     emit({"kernels": [{
         "name": "sw_flux", "route": "cuda",
@@ -2193,7 +2518,9 @@ def _run_phases(kind, smi, cpu_refs):
         "launches": launches["sw_flux"],
         "launches_by_path": {"slice": launches["sw_flux"], "moist_rrtm": rrtm_launches,
                              **mima_launches, **cloud_launches,
-                             **new_paths, **exp_launches},
+                             **new_paths, **exp_launches,
+                             "namelist_mima": namelist_launches,
+                             "sharded_per_rank": sharded_launches},
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],

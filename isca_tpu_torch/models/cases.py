@@ -27,6 +27,11 @@ be fed the same values, then wrapped by `monthly_climatology` and
                          schemes (mellor_yamada, edt, entrain, stable_bl with
                          shallow convection).
 
+On a mesh every seeded field, the continents and the topography are built
+on the whole globe and each rank keeps its band's rows, so a sharded model
+is fed what the model on one device is fed (the draws of a field depend on
+its whole shape).
+
 A cold start is isothermal and dry, so no convection scheme acts in its
 first steps; `convective_start` gives a conditionally unstable start (a
 6.5 K/km lapse rate from 300 K at the surface and 80% relative humidity
@@ -110,11 +115,32 @@ def ice_fields(lat_deg, nlon, seed=SEED + 3):
 
 
 def _lat_deg(model):
-    return np.degrees(model.core.T.lats.detach().cpu().numpy().astype(np.float64))
+    """The whole globe's latitudes [deg] (the band's rows are cut later)."""
+    lats = tr.global_lats(model.core.T)
+    return np.degrees(lats.detach().cpu().numpy().astype(np.float64))
 
 
 def _series(model, fields):
+    """A monthly series of whole-globe (12, nlat, ...) fields, this rank's
+    rows of them on a mesh."""
+    fields = model.core.T.local_lat(fields, axis=1)
     return monthly_climatology(fields, YEAR_SECONDS, model.config.core.dtype, model.device)
+
+
+def globe_transforms(model):
+    """The model's transforms when they hold the whole globe; on a mesh,
+    mesh-less ones of the same truncation and dtype on the model's device
+    (for band_limit_topography)."""
+    T, c = model.core.T, model.config.core
+    if T.mesh is None:
+        return T
+    return tr.make_transforms(c.resolution, nlon=c.nlon, nlat=c.nlat,
+                              radius=c.constants.radius, dtype=c.dtype,
+                              make_symmetric=c.make_symmetric,
+                              precision=c.transform_precision,
+                              fourier_method=c.fourier_method,
+                              truncation_shape=c.truncation_shape,
+                              fourier_inc=c.fourier_inc, device=model.device)
 
 
 def mima_gwd_config(dtype=torch.float32, **core_overrides):
@@ -164,11 +190,12 @@ def continents_config(dtype=torch.float32, continents_sst=False, **core_override
 
 def continents_land(model):
     """The idealized continents and the Sauliere 2012 topography band-limited
-    through the model's truncation, as numpy (land mask, height in m)."""
+    through the model's truncation, as numpy (land mask, height in m) on the
+    whole globe, also on a mesh (set_land keeps the band)."""
     from isca_tpu_torch.utils.land_generator import generate_land
     from isca_tpu_torch.utils.topography import band_limit_topography
 
-    T = model.core.T
+    T = globe_transforms(model)
     lats, lons = np.degrees(T.lats.cpu().numpy()), np.degrees(T.lons.cpu().numpy())
     land, topo = generate_land(lats, lons, "continents", topo_mode="sauliere2012")
     topo = band_limit_topography(T, np.asarray(topo, np.float64), n_smooth_passes=2,

@@ -5,6 +5,11 @@ the COLUMN_MODEL variant of the driver, atmosphere.F90:39-53): a no-op
 dynamics on a (possibly 1x1) grid replaces the spectral dynamical core; the
 same leapfrog time levels and the moist physics stack run unchanged. All
 columns are independent, so they batch over the (lat, lon) axes.
+
+On a mesh (isca_tpu_torch.parallel.mesh; ColumnConfig has no mesh, as
+isca_tpu's has none) each rank steps its block of the nlat rows
+(`Mesh.block`), whole along longitude; only the validity guard's extrema
+are reduced over the ranks.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from isca_tpu_torch.constants import Constants, EARTH
 from isca_tpu_torch.dycore import press_geopot as pgm
 from isca_tpu_torch.dycore import vert_coordinate as vc
 from isca_tpu_torch.dycore.time_integration import TwoLevel, leapfrog
+from isca_tpu_torch.parallel.mesh import check_mesh
 from isca_tpu_torch.physics.moist_driver import MoistPhysics, MoistPhysicsConfig
 from isca_tpu_torch.utils.validity import check_range
 
@@ -58,11 +64,23 @@ class ColumnState:
 
 class ColumnModel:
     def __init__(self, config: ColumnConfig = ColumnConfig(), device=None, mesh=None):
-        """device: None runs on CUDA; "cpu" on the CPU. mesh: the column
-        model is not sharded yet, and a mesh raises NotImplementedError."""
-        if mesh is not None:
-            raise NotImplementedError("the column model is not sharded yet")
+        """device: None runs on CUDA; "cpu" on the CPU. mesh: an
+        isca_tpu_torch.parallel.mesh.Mesh gives each rank mesh.block(nlat)
+        rows of the columns (device None is then the mesh's); nlat must
+        split over the ranks (ValueError)."""
         self.config = c = config
+        self.mesh = mesh
+        nlat = c.nlat
+        if mesh is not None:
+            check_mesh(mesh)
+            if c.nlat % mesh.size:
+                raise ValueError(f"ColumnModel on a mesh of {mesh.size} ranks needs "
+                                 f"nlat={c.nlat} to be a multiple of {mesh.size}")
+            start, stop = mesh.block(c.nlat)
+            nlat = stop - start
+            if device is None:
+                device = mesh.device
+        self.nlat = nlat                  # this rank's rows
         self.device = resolve_device(device)
         self.C = c.constants
         pk, bk = vc.compute_vert_coord(c.vert_coord_option, c.num_levels,
@@ -70,12 +88,13 @@ class ColumnModel:
         as_t = lambda a: torch.as_tensor(a, device=self.device).to(c.dtype)
         self.pk, self.bk = as_t(pk), as_t(bk)
         self.top_is_zero = bool(pk[0] == 0.0 and bk[0] == 0.0)
-        lats = as_t(np.deg2rad(np.full(c.nlat, c.lat_deg)))
+        lats = as_t(np.deg2rad(np.full(nlat, c.lat_deg)))
         lons = as_t(np.zeros(c.nlon))
         self.physics = MoistPhysics(c.physics, lats, lons)
         # minimal grid info for the Experiment/diag layer (column_grid role)
-        self.T = SimpleNamespace(lats=lats, lons=lons, grid_shape=(c.nlat, c.nlon))
-        ps = self._full((c.nlat, c.nlon), c.ps)
+        self.T = SimpleNamespace(lats=lats, lons=lons, grid_shape=(nlat, c.nlon),
+                                 nlat=c.nlat, nlon=c.nlon, mesh=mesh)
+        ps = self._full((nlat, c.nlon), c.ps)
         ph, lph, pf, lpf = pgm.pressure_variables(self.pk, self.bk, ps, self.top_is_zero)
         self.p_half, self.p_full = ph, pf
         self.ln_p_half, self.ln_p_full = lph, lpf
@@ -89,7 +108,7 @@ class ColumnModel:
 
     def validity(self, state: ColumnState):
         lo, hi = self.config.valid_range_t
-        return check_range(state.t.curr, lo, hi)
+        return check_range(state.t.curr, lo, hi, mesh=self.mesh)
 
     def _full(self, shape, value, dtype=None):
         return torch.full(shape, value, dtype=dtype or self.config.dtype,
@@ -97,14 +116,14 @@ class ColumnModel:
 
     def initial_state(self) -> ColumnState:
         c = self.config
-        shape = (c.nlat, c.nlon, c.num_levels)
+        shape = (self.nlat, c.nlon, c.num_levels)
         two = lambda x: TwoLevel(x, x.clone())
         return ColumnState(
             t=two(self._full(shape, c.initial_temperature)),
             q=two(self._full(shape, c.initial_sphum)),
             u=two(self._full(shape, 0.0)),
             v=two(self._full(shape, 0.0)),
-            t_surf=self._full((c.nlat, c.nlon), c.t_surf_init),
+            t_surf=self._full((self.nlat, c.nlon), c.t_surf_init),
             time_seconds=self._full((), 0.0, torch.float32),
         )
 
@@ -113,7 +132,7 @@ class ColumnModel:
         delta_t = c.dt if first else 2.0 * c.dt
         geo_f, geo_h = pgm.compute_geopotential(
             C.rdgas, state.t.curr, self.ln_p_half, self.ln_p_full,
-            self._full((c.nlat, c.nlon), 0.0), self.top_is_zero,
+            self._full((self.nlat, c.nlon), 0.0), self.top_is_zero,
             p_half=self.p_half)
         # float32 time, as in isca_tpu: gmt and time_since_ae round alike
         day = C.seconds_per_day

@@ -53,7 +53,9 @@ def giant_planet_model(
     T42 reduction, trip_test_functions.py:50-55; the T213 case uses 100),
     and the rayleigh_bottom_drag module defaults (sigma_b=0.85).
     device: None runs on CUDA (and raises without it); "cpu" on the CPU.
-    mesh: the model is not sharded yet, and a mesh raises NotImplementedError."""
+    mesh: an isca_tpu_torch.parallel.mesh.Mesh shards the model
+    (PrimitiveConfig(mesh=...)): each rank steps its latitude band and m
+    block; the giant-planet surface and dry convection are column-local."""
     core = PrimitiveConfig(
         resolution=resolution,
         num_levels=num_levels,

@@ -20,9 +20,10 @@ Matches exp/test_cases/frierson/frierson_test_case.py defaults.
 
 With PrimitiveConfig(mesh=...) every rank steps its latitude band of the
 columns and its m block of the spectral state (dycore.primitive); the
-diagnostics' means and extrema are global. On a mesh only the grey
-radiation is ported: RRTM, SOCRATES, the giant-planet lower boundary and
-set_land raise NotImplementedError.
+diagnostics' means and extrema are global. The physics is column-local, so
+every configuration runs on a mesh: each rank's MoistPhysics holds its
+band's latitudes (radiation, clouds, the drags and the series see only its
+columns), and set_land takes the whole globe's fields and keeps the band.
 """
 
 from __future__ import annotations
@@ -88,8 +89,6 @@ class GreyMoistModel:
     def __init__(self, config: GreyMoistConfig = GreyMoistConfig(), device=None):
         """device: None runs on CUDA (and raises without it); "cpu" on the CPU."""
         self.config = config
-        if config.core.mesh is not None:
-            _check_shardable(config)
         attrs = (TracerAttr("sphum", representation="grid",
                             vert_scheme=config.sphum_vert_scheme),)
         self.core = PrimitiveCore(config.core, tracer_attrs=attrs, device=device)
@@ -116,22 +115,34 @@ class GreyMoistModel:
         Raw gridded topography should be band-limited first
         (utils.topography.band_limit_topography) as the reference does for
         input topography. Arrays or tensors; they are moved to the model's
-        device and dtype."""
-        if self.config.core.mesh is not None:
-            raise NotImplementedError("set_land on a mesh is not ported: the "
-                                      "sharded GreyMoistModel runs the aquaplanet")
+        device and dtype.
+
+        On a mesh both fields are the whole globe's (nlat, nlon), as
+        isca_tpu's are: each rank keeps its band's rows, so the spectral
+        surface geopotential is the sharded transform of the whole field.
+        Band-limit the topography before, with mesh-less transforms."""
         if units not in ("m", "m2/s2"):
             raise ValueError(f"set_land units must be 'm' or 'm2/s2', got {units!r}")
-        as_t = lambda x: torch.as_tensor(
-            x if torch.is_tensor(x) else np.asarray(x, np.float64)).to(
+        T = self.core.T
+        whole = (T.nlat, T.nlon)
+
+        def as_t(x):
+            x = torch.as_tensor(x if torch.is_tensor(x) else np.asarray(x, np.float64)).to(
                 device=self.device, dtype=self.config.core.dtype)
+            if T.mesh is not None:
+                if tuple(x.shape) != whole:
+                    raise ValueError(f"set_land on a mesh takes the whole globe's "
+                                     f"{whole} fields, not {tuple(x.shape)}")
+                x = T.local_lat(x).clone()
+            return x
+
         self.land_mask = as_t(land_mask)
         self.physics.land_mask = self.land_mask
         if surf_geopotential is not None:
             topo = as_t(surf_geopotential)
             grav = self.core.C.grav
             if units == "m":
-                zmax = float(topo.max())
+                zmax = float(tr.grid_max(T, topo))
                 if zmax > 9500.0:
                     warnings.warn(
                         f"set_land: max surface height {zmax:.0f} m exceeds "
@@ -308,19 +319,6 @@ class GreyMoistModel:
             "u_zonal": dyn.ug.curr.mean(dim=2),
             "q_zonal": q.mean(dim=2),
         }
-
-
-def _check_shardable(config: GreyMoistConfig):
-    """NotImplementedError for the GCMs that are not sharded yet."""
-    pc = config.physics
-    name = None
-    if pc.gp_surface:
-        name = "the giant planet model"
-    elif pc.radiation_scheme.lower() != "two_stream":
-        name = f"the {pc.radiation_scheme} radiation GCM"
-    if name is not None:
-        raise NotImplementedError(f"{name} is not sharded yet: on a mesh "
-                                  "GreyMoistModel runs grey radiation only")
 
 
 # Frierson 2006 sigma ladder (reference frierson_test_case.py vert_coordinate_nml)

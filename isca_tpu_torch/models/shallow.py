@@ -20,6 +20,12 @@ thickness h (= g*depth, mean h_0). One leapfrog step:
 Physics (shallow_physics.F90): Rayleigh friction on (u, v) and Newtonian
 relaxation of h to a localized h_eq bump + ITCZ band, evaluated at `previous`.
 A run is a Python loop of eager steps.
+
+ShallowConfig has no mesh, as isca_tpu's has none; as for BarotropicModel,
+a mesh is an explicit constructor argument: each rank then steps its
+latitude band and m block (spectral.transforms), the deep-flow geopotential
+is built on the whole globe and cut to the band, and the stirring draws the
+whole field and keeps the rank's m rows.
 """
 
 from __future__ import annotations
@@ -115,16 +121,15 @@ class ShallowState:
 class ShallowModel:
     def __init__(self, config: ShallowConfig = ShallowConfig(), device=None, mesh=None):
         """device: None runs on CUDA (and raises without it); "cpu" on the CPU.
-        mesh: the shallow-water model is not sharded yet, and a mesh raises
-        NotImplementedError."""
-        if mesh is not None:
-            raise NotImplementedError("the shallow-water model is not sharded yet")
+        mesh: an isca_tpu_torch.parallel.mesh.Mesh shards the model (device
+        None is then the mesh's)."""
         self.config = c = config
         self.T = T = tr.make_transforms(c.resolution, nlon=c.nlon, nlat=c.nlat,
                                         radius=c.radius, dtype=c.dtype,
                                         precision=c.transform_precision,
                                         truncation_shape=c.truncation_shape,
-                                        fourier_inc=c.fourier_inc, device=device)
+                                        fourier_inc=c.fourier_inc, mesh=mesh,
+                                        device=device)
         self.device = T.device
         self.damping = make_damping(
             T, damping_coeff=c.damping_coeff, damping_order=c.damping_order,
@@ -135,22 +140,23 @@ class ShallowModel:
         # positive Laplacian eigenvalues lam = n(n+1)/a^2, broadcast over (m, n)
         nv = np.arange(T.num_spherical + 1, dtype=np.float64)
         lam = nv * (nv + 1.0) / (c.radius * c.radius)
-        self.lam = f(np.broadcast_to(lam, (T.num_fourier + 1, T.num_spherical + 1)))
+        self.lam = f(np.broadcast_to(lam, T.spec_shape))
 
-        # bottom ("deep flow") geopotential (shallow_dynamics_init:114-118)
-        lat = T.lats.cpu().numpy().astype(np.float64)
+        # bottom ("deep flow") geopotential (shallow_dynamics_init:114-118),
+        # its global mean removed on the whole globe, then this rank's band
+        lat_g = tr.global_lats(T).cpu().numpy().astype(np.float64)
         nm = c.n_merid_deep_flow
         dg = (-2.0 * c.omega * c.u_deep_mag * c.radius / (1.0 - nm**2)) * (
-            -np.cos(nm * lat) * np.cos(lat)
-            - nm * (np.sin(nm * lat) * np.sin(lat) - np.sin(nm * np.pi / 4.0 * 2.0))
+            -np.cos(nm * lat_g) * np.cos(lat_g)
+            - nm * (np.sin(nm * lat_g) * np.sin(lat_g) - np.sin(nm * np.pi / 4.0 * 2.0))
         )
-        dg2d = np.broadcast_to(dg[:, None], T.grid_shape).copy()
-        w = T.wts.cpu().numpy() / 2.0
+        dg2d = np.broadcast_to(dg[:, None], (T.nlat, T.nlon)).copy()
+        w = tr.gaussian_weights(T).cpu().numpy() / 2.0
         dg2d -= (dg2d.mean(axis=1) * w).sum()
-        self.deep_geopot = f(dg2d)
+        self.deep_geopot = f(T.local_lat(dg2d))
 
-        # physics equilibrium height field (shallow_physics_init)
-        lat_deg = np.degrees(lat)
+        # physics equilibrium height field (shallow_physics_init), column-local
+        lat_deg = np.degrees(T.lats.cpu().numpy().astype(np.float64))
         lon_deg = np.degrees(T.lons.cpu().numpy())
         xx = (lon_deg[None, :] - c.h_lon) / (c.h_width * 2.0)
         yy = (lat_deg[:, None] - c.h_lat) / c.h_width
@@ -171,7 +177,8 @@ class ShallowModel:
 
     def validity(self, state: ShallowState):
         lo, hi = self.config.valid_range_v
-        return check_range(torch.stack([state.u.curr, state.v.curr]), lo, hi)
+        return check_range(torch.stack([state.u.curr, state.v.curr]), lo, hi,
+                           mesh=self.T.mesh)
 
     def initial_state(self, seed: int = 0) -> ShallowState:
         c, T = self.config, self.T
@@ -291,5 +298,5 @@ class ShallowModel:
         return {
             "energy": tr.area_weighted_mean(T, ke + pe) / self.config.h_0,
             "mean_h": tr.area_weighted_mean(T, state.hg.curr),
-            "hmin": state.hg.curr.min(),
+            "hmin": tr.grid_min(T, state.hg.curr),
         }

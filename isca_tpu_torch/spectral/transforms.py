@@ -662,6 +662,16 @@ def gaussian_weights(T: SphericalTransforms) -> torch.Tensor:
                                                                 dtype=T.dtype)
 
 
+def global_lats(T: SphericalTransforms) -> torch.Tensor:
+    """The (nlat,) latitudes [rad] of the whole globe in T's dtype, on any
+    rank (T.lats holds only the band on a mesh): what is built on the whole
+    globe and then cut to the band (seeded series, topography)."""
+    if T.mesh is None:
+        return T.lats
+    mu = gauss.gauss_legendre(T.nlat)[0]
+    return torch.as_tensor(np.arcsin(mu)).to(device=T.device, dtype=T.dtype)
+
+
 def coriolis_grid(T: SphericalTransforms, omega: float) -> torch.Tensor:
     """Planetary vorticity f = 2*Omega*sin(lat) on the grid, shape grid_shape."""
     return (2.0 * omega * T.sinlat[:, None]).expand(*T.grid_shape)

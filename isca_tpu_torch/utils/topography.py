@@ -71,12 +71,24 @@ def land_mask(
     raise ValueError(land_mode)
 
 
+def _whole_globe(T: tr.SphericalTransforms, what: str):
+    if T.mesh is not None:
+        raise ValueError(f"{what} needs the whole globe's transforms, not a rank's "
+                         "(T.mesh is set): build mesh-less transforms of the same "
+                         "truncation, then cut the result to the band")
+
+
 def band_limit_topography(T: tr.SphericalTransforms, zsurf, n_smooth_passes=0,
                           smooth_fraction=0.0):
     """Round-trip topography through the spectral transform so the initial
     surface geopotential is band-limited (spectral_init_cond semantics); an
     optional weak del^2 smoothing pass approximates topog_regularization's
-    ocean smoothing."""
+    ocean smoothing.
+
+    T must hold the whole globe: on a mesh, band-limit with mesh-less
+    transforms of the same truncation first and give set_land the whole
+    field (a sharded T raises ValueError)."""
+    _whole_globe(T, "band_limit_topography")
     z = torch.as_tensor(zsurf if torch.is_tensor(zsurf) else np.asarray(zsurf, np.float64)).to(
         device=T.device, dtype=T.dtype)
     zs = tr.grid_to_spec(T, z)
@@ -100,6 +112,7 @@ def _host(x) -> np.ndarray:
 
 
 def _np_tables(T: tr.SphericalTransforms):
+    _whole_globe(T, "the topography regularization")
     P = _host(T.P)                           # (nlat, M+1, N+1)
     Pw = _host(T.Pw)
     Cf = _host(T.dft_cos_f)

@@ -12,8 +12,12 @@ against the CPU, and McICA's draws on the card bit for bit against the CPU;
 each new column scheme (mg_drag, cg_drag, RAS, MY2.5, shallow convection,
 the stable BL, EDT, entrain) and each new GCM path (MiMA with its drag and
 series, the continents with SSTs and sea ice, RAS and the four
-boundary-layer schemes) at T21 on the card against the CPU at float32.
-Every test here needs a CUDA device and skips without one.
+boundary-layer schemes) at T21 on the card against the CPU at float32;
+2 gloo ranks sharing the card (HS steps against the card alone, and the
+MiMA test case's sw_flux on each rank's band against its plain version),
+the native library, and exp/namelists/mima.nml built on the card through
+the port's namelist reader. Every test here needs a CUDA device and skips
+without one.
 
 This file imports torch, numpy and isca_tpu_torch only, so it runs where JAX
 is absent (tests/conftest.py imports JAX; skip it there):
@@ -713,6 +717,82 @@ def test_two_gloo_ranks_hs_steps_on_card_match_one_card(tmp_path):
     blocks = [np.load(tmp_path / f"block{r}.npz") for r in range(2)]
     assert [int(b["m_start"]) for b in blocks] == [0, 22]
     assert not np.array_equal(blocks[0]["block"], blocks[1]["block"])
+
+
+def _sharded_mima_rank(rank, outdir):
+    """One rank: the MiMA test case at T42L25 float32 on a 2-rank mesh on the
+    card, 2 steps; the inputs of each sw_flux call are kept, and the kernel's
+    result on them is held against its plain version."""
+    import json
+
+    from isca_tpu_torch.models.moist import GreyMoistModel, mima_test_case_config
+    from isca_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(2)
+    model = GreyMoistModel(mima_test_case_config(dtype=torch.float32, mesh=mesh))
+    calls, kernel = [], P.sw_flux_solve
+
+    def keep(*args, **kwargs):
+        calls.append((args, kwargs))
+        return kernel(*args, **kwargs)
+
+    # the wrapper counts on the module's sw_flux_solve, which is `keep` here
+    keep.launches = 0
+    P.sw_flux_solve = keep
+    try:
+        model.run(model.initial_state(), 2)
+    finally:
+        P.sw_flux_solve = kernel
+    report = {"launches": keep.launches, "batch": [], "excess": []}
+    for args, kwargs in calls:
+        out = kernel(*args, **kwargs)
+        ref = P.sw_flux_solve_reference(*args, **kwargs)
+        scale = float(ref[0].abs().max())
+        report["batch"].append(list(args[0].shape))
+        report["excess"].append(max(
+            float(((a - b).abs() - (1e-4 * scale + 5e-4 * b.abs())).max())
+            for a, b in zip(out, ref)))
+        report["swd_max"] = scale
+    with open(f"{outdir}/mima_rank{rank}.json", "w") as f:
+        json.dump(report, f)
+
+
+def test_two_gloo_ranks_mima_band_sw_flux_matches_plain(tmp_path):
+    """2 ranks sharing the card over gloo run the MiMA test case (T42L25,
+    float32) on their latitude bands: sw_flux launches once per step on
+    each rank, on its 32 x 128 = 4096 columns x 25 levels x 112 g-points,
+    and on those inputs agrees with its plain version at the kernel's
+    gate (rtol 5e-4, atol 1e-4 x max|swd|)."""
+    import json
+
+    from isca_tpu_torch.parallel.mesh import spawn
+
+    spawn(_sharded_mima_rank, 2, "gloo", str(tmp_path / "init"), args=(str(tmp_path),))
+    for r in range(2):
+        report = json.loads((tmp_path / f"mima_rank{r}.json").read_text())
+        assert report["launches"] == 2, report
+        assert report["batch"] == [[32, 128, 25, 112]] * 2, report
+        assert max(report["excess"]) <= 0.0 and report["swd_max"] > 0.0, report
+
+
+def test_mima_namelist_builds_on_card(tmp_path):
+    """exp/namelists/mima.nml through isca_tpu_torch.namelist builds its
+    T42L40 RRTM model on CUDA by default, and a step from cold start
+    launches sw_flux once on its 8192 x 40 columns and stays finite."""
+    import pathlib
+
+    from isca_tpu_torch.namelist import model_from_namelist, parse_namelist
+
+    nml = pathlib.Path(__file__).resolve().parent.parent / "exp" / "namelists" / "mima.nml"
+    model = model_from_namelist(parse_namelist(nml.read_text()))
+    c = model.config
+    assert model.device.type == "cuda" and model.core.T.grid_shape == (64, 128)
+    assert (c.core.num_levels, c.core.dt, c.physics.dt_rad) == (40, 600.0, 7200.0)
+    P.sw_flux_solve.launches = 0
+    state = model.step(model.initial_state(), first=True)
+    torch.cuda.synchronize()
+    assert P.sw_flux_solve.launches == 1
+    assert bool(torch.isfinite(state.dyn.tg.curr).all()) and state.dyn.tg.curr.is_cuda
 
 
 def test_native_library_builds_on_the_card_machine():

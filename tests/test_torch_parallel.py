@@ -375,20 +375,28 @@ def test_mesh_errors(sharded):
     assert "nlat=30 % 4 == 0" in errors["nlat_does_not_divide"]
 
 
-@pytest.mark.parametrize("case", ["hs", "frierson"])
+@pytest.mark.parametrize("case", ["hs", "frierson", "mima"])
 def test_sharding_pytree_describes_shard_pytree(case):
     """sharding_pytree's axis and blocks (from the whole state) are where
     shard_pytree cuts each rank's block, and local_sharding reads the same
     layout back from the block alone (what gather_pytree and the tiles
     use); spectral leaves shard on m, grid leaves on latitude, the 0-d and
-    1-d leaves are replicated. Meshes built by hand: nothing here reaches a
-    collective."""
+    1-d leaves are replicated. MiMA at T21L8 on 4 ranks has the ambiguous
+    shapes: a band of 8 rows and 8 levels, so a rank's level-first (8, 8,
+    64) block and its level-last RadCache (8, 64, 8) and TKE (8, 64, 9)
+    blocks each carry an axis of the band's extent besides the latitude
+    axis; RadCache's age is a 0-d host leaf. Meshes built by hand: nothing
+    here reaches a collective."""
     from isca_tpu_torch.parallel.mesh import (Mesh, local_sharding, shard_pytree,
                                               sharding_pytree)
 
-    core = padded(cases.hs_core("T21", 8) if case == "hs" else cases.frierson_core())
-    model = (THSM(THSC(core=core), device="cpu") if case == "hs"
-             else TGM(TGC(core=core), device="cpu"))
+    if case == "mima":
+        cfg = cases.gcm_config("mima")
+        model = TGM(dataclasses.replace(cfg, core=padded(cfg.core)), device="cpu")
+    else:
+        core = padded(cases.hs_core("T21", 8) if case == "hs" else cases.frierson_core())
+        model = (THSM(THSC(core=core), device="cpu") if case == "hs"
+                 else TGM(TGC(core=core), device="cpu"))
     whole = model.initial_state()
     nlat = model.core.T.nlat
     flat = flatten_with_paths(whole)
@@ -412,33 +420,44 @@ def test_sharding_pytree_describes_shard_pytree(case):
 
 
 def test_unsharded_models_raise_on_a_mesh():
-    """The models this slice does not shard raise NotImplementedError on a
-    mesh, naming the model (the mesh object is built by hand: nothing here
-    reaches a collective)."""
-    from isca_tpu_torch.models.column import ColumnModel
+    """Every model runs on a mesh now (tests/test_torch_parallel_gcm.py and
+    its two sibling files hold them against isca_tpu), so what raises is a
+    wrong mesh: a non-Mesh raises TypeError for each model that takes one; a
+    sharded T passed to band_limit_topography raises ValueError (band-limit
+    on mesh-less transforms, then set_land the whole field); a column model
+    with fewer rows than ranks, or rows that do not split, raises
+    ValueError; set_land on a mesh takes only the whole globe's fields. The
+    meshes are built by hand: nothing here reaches a collective."""
+    from isca_tpu_torch.models.column import ColumnConfig, ColumnModel
     from isca_tpu_torch.models.giant import giant_planet_model
     from isca_tpu_torch.models.moist import (mima_test_case_config,
                                              socrates_aquaplanet_test_case_config)
     from isca_tpu_torch.models.shallow import ShallowModel
     from isca_tpu_torch.parallel.mesh import Mesh
+    from isca_tpu_torch.utils.topography import band_limit_topography
+
+    not_a_mesh = object()
+    for cfg in (mima_test_case_config(resolution="T21", num_levels=8),
+                socrates_aquaplanet_test_case_config(True, resolution="T21", num_levels=8)):
+        cfg = dataclasses.replace(cfg, core=dataclasses.replace(cfg.core, mesh=not_a_mesh))
+        with pytest.raises(TypeError, match="Mesh"):
+            TGM(cfg, device="cpu")
+    with pytest.raises(TypeError, match="Mesh"):
+        giant_planet_model(resolution="T21", num_levels=8, device="cpu", mesh=not_a_mesh)
+    with pytest.raises(TypeError, match="Mesh"):
+        ShallowModel(device="cpu", mesh=not_a_mesh)
+    with pytest.raises(TypeError, match="Mesh"):
+        ColumnModel(device="cpu", mesh=not_a_mesh)
 
     mesh = Mesh(group=None, rank=0, size=4, backend="gloo", device=torch.device("cpu"))
-    for cfg, what in ((mima_test_case_config(resolution="T21", num_levels=8), "rrtm"),
-                      (socrates_aquaplanet_test_case_config(resolution="T21",
-                                                            num_levels=8), "socrates")):
-        cfg = dataclasses.replace(cfg, core=dataclasses.replace(cfg.core, mesh=mesh))
-        with pytest.raises(NotImplementedError, match=what):
-            TGM(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="giant planet"):
-        giant_planet_model(resolution="T21", num_levels=8, device="cpu", mesh=mesh)
-    with pytest.raises(NotImplementedError, match="shallow-water"):
-        ShallowModel(device="cpu", mesh=mesh)
-    with pytest.raises(NotImplementedError, match="column"):
-        ColumnModel(device="cpu", mesh=mesh)
-    # the sharded Frierson GCM runs the aquaplanet: set_land raises
-    core = dataclasses.replace(cases.frierson_core(), mesh=mesh)
-    model = TGM(TGC(core=core), device="cpu")
-    with pytest.raises(NotImplementedError, match="set_land"):
+    Tm = ttr.make_transforms("T21", dtype=torch.float64, mesh=mesh)
+    with pytest.raises(ValueError, match="whole globe"):
+        band_limit_topography(Tm, np.zeros((Tm.nlat, Tm.nlon)))
+    for nlat in (2, 6):
+        with pytest.raises(ValueError, match=f"nlat={nlat}"):
+            ColumnModel(ColumnConfig(nlat=nlat, nlon=3), mesh=mesh)
+    model = TGM(TGC(core=dataclasses.replace(cases.frierson_core(), mesh=mesh)), device="cpu")
+    with pytest.raises(ValueError, match="whole globe"):
         model.set_land(np.zeros(model.core.T.grid_shape))
 
 

@@ -1,8 +1,12 @@
-"""The sharded runs of tests/test_torch_parallel.py and
-tests/test_torch_distributed_io.py, one function per rank.
+"""The sharded runs of tests/test_torch_parallel.py,
+tests/test_torch_distributed_io.py and tests/test_torch_parallel_{gcm,
+clouds,models}.py, one function per rank.
 
-`run(rank, outdir)` and `run_io(rank, outdir)` are what every rank of one
-`spawn` of 4 gloo ranks on the CPU calls (isca_tpu_torch.parallel.mesh.spawn).
+`run(rank, outdir)`, `run_io(rank, outdir)` and `run_gcm(rank, outdir,
+which)` are what every rank of one `spawn` of 4 gloo ranks on the CPU calls
+(isca_tpu_torch.parallel.mesh.spawn); `run_gcm` runs GCM_FILES[which]'s
+cases, whose models `gcm_model` builds for the ranks and the test process
+alike.
 `run` runs each case on the mesh and writes, per case, the global result
 gathered on rank 0 (`<case>.npz`, io/restart.py's layout) and each rank's
 own block of the spectral state (`<case>_rank<r>.npz`), for the test
@@ -344,3 +348,191 @@ def run_io(rank, outdir):
     w = dio.DiagTileWriter(os.path.join(outdir, "diag"), mesh, nlat=nlat)
     w.write(0, {"temp": state.tg.curr, "ps": state.psg.curr, "pk": model.core.pk})
     _two_rank_roundtrip(outdir)
+
+
+# ---- tests/test_torch_parallel_gcm*.py's ranks ----------------------------------
+
+GCM_STEPS = 3
+GCM_CORE = dict(resolution="T21", num_levels=8, transform_precision="highest")
+# the cloud cases start moist, so that SimCloud makes clouds in 3 steps
+MOIST_START_SPHUM = 0.01
+COLUMN_SHAPE = (8, 4)            # (nlat, nlon) columns of the column case
+SHALLOW_RESOLUTION = 31          # 32 m rows: no padding, so the stirring draws
+#                                  the shape isca_tpu's one device draws
+# the cases of each test file (one spawn per file)
+GCM_FILES = {
+    "mima": ("mima", "mima_gwd"),                   # test_torch_parallel_gcm.py
+    "clouds": ("simple_clouds", "socrates_cloud"),  # test_torch_parallel_clouds.py
+    "models": ("continents", "continents_sst", "giant", "shallow", "column"),
+    #                                                 test_torch_parallel_models.py
+}
+
+
+def gcm_config(name, mesh=None):
+    """A GCM case's port configuration at T21L8 float64 (GreyMoistConfig,
+    ShallowConfig or ColumnConfig); `mesh` goes into PrimitiveConfig."""
+    import dataclasses
+
+    from isca_tpu_torch.models import cases, moist
+
+    f64 = torch.float64
+    core = dict(GCM_CORE, dtype=f64, mesh=mesh)
+    if name == "mima":
+        return moist.mima_test_case_config(**core)
+    if name == "mima_gwd":
+        return cases.mima_gwd_config(**core)
+    if name in ("simple_clouds", "socrates_cloud"):
+        cfg = (moist.simple_clouds_test_case_config(**core) if name == "simple_clouds"
+               else moist.socrates_aquaplanet_test_case_config(True, **core))
+        return dataclasses.replace(cfg, initial_sphum=MOIST_START_SPHUM)
+    if name in ("continents", "continents_sst"):
+        return cases.continents_config(continents_sst=name == "continents_sst", **core)
+    if name == "shallow":
+        from isca_tpu_torch.models.shallow import ShallowConfig
+        return ShallowConfig(resolution=SHALLOW_RESOLUTION, dt=1200.0, dtype=f64,
+                             stirring_amplitude=3e-11, damping_order=2)
+    if name == "column":
+        from isca_tpu_torch.models.column import ColumnConfig
+        from isca_tpu_torch.physics.moist_driver import MoistPhysicsConfig
+        from isca_tpu_torch.physics.rrtm_radiation import RRTMConfig
+        return ColumnConfig(nlat=COLUMN_SHAPE[0], nlon=COLUMN_SHAPE[1], num_levels=8,
+                            dt=600.0, dtype=f64, physics=MoistPhysicsConfig(
+                                radiation_scheme="rrtm",
+                                rrtm=RRTMConfig(lw_scheme="grey", o3_mmr=1e-6)))
+    raise KeyError(name)
+
+
+def gcm_model(name, mesh=None, device=None):
+    """The port's model of a GCM case, with its land, series and (for
+    SOCRATES) float64 radiation attached; on `mesh` when given."""
+    from isca_tpu_torch.models import cases
+    from isca_tpu_torch.models.moist import GreyMoistModel
+
+    if name == "giant":
+        from isca_tpu_torch.models.giant import giant_planet_model
+        return giant_planet_model(resolution="T21", num_levels=8, dtype=torch.float64,
+                                  device=device, mesh=mesh)
+    cfg = gcm_config(name, mesh)
+    if name == "shallow":
+        from isca_tpu_torch.models.shallow import ShallowModel
+        return ShallowModel(cfg, device=device, mesh=mesh)
+    if name == "column":
+        from isca_tpu_torch.models.column import ColumnModel
+        return ColumnModel(cfg, device=device, mesh=mesh)
+    model = GreyMoistModel(cfg, device=device)
+    if name == "mima_gwd":
+        cases.add_mima_series(model)
+    elif name in ("continents", "continents_sst"):
+        cases.set_continents(model)
+    elif name == "socrates_cloud":
+        # float64 SOCRATES (ROADMAP C.8: the default float32 one rounds
+        # otherwise than isca_tpu's)
+        from isca_tpu_torch.physics.socrates import SocratesRadiation
+        model.physics.radiation = SocratesRadiation(cfg.physics.socrates,
+                                                    dtype=torch.float64, device=model.device)
+    return model
+
+
+def column_start(nlat, nlon, levels, seed=SEED):
+    """A seeded whole-globe column state as numpy (convert.py's keys): every
+    column perturbed (T +-5 K, q x 0.5..1.5, t_surf +-5 K), the clock at noon."""
+    rng = np.random.default_rng(seed)
+    shape = (nlat, nlon, levels)
+    t = 264.0 + rng.uniform(-5.0, 5.0, shape)
+    q = 2.0e-6 * rng.uniform(0.5, 1.5, shape) + 1.0e-3 * rng.uniform(0.0, 1.0, shape)
+    z = np.zeros(shape)
+    return {"t_prev": t, "t_curr": t, "q_prev": q, "q_curr": q, "u_prev": z, "u_curr": z,
+            "v_prev": z, "v_curr": z,
+            "t_surf": 285.0 + rng.uniform(-5.0, 5.0, (nlat, nlon)),
+            "time_seconds": np.float32(0.5 * 86400.0)}
+
+
+def gcm_start(name, model):
+    """The case's initial state on the model's device (its band on a mesh)."""
+    if name != "column":
+        return model.initial_state()
+    from isca_tpu_torch.convert import column_state_from_numpy
+
+    c = model.config
+    d = column_start(c.nlat, c.nlon, c.num_levels)
+    if model.mesh is not None:
+        start, stop = model.mesh.block(c.nlat)
+        d = {k: (v[start:stop] if np.ndim(v) >= 2 else v) for k, v in d.items()}
+    return column_state_from_numpy(d, dtype=c.dtype, device=model.device)
+
+
+def gcm_steps(name, model, state, steps=GCM_STEPS):
+    """`steps` leapfrog steps from `state` (first=False throughout, so that
+    isca_tpu compiles one step, not the forward step as well); the state
+    and, for the GCMs, the last step's physics diagnostics."""
+    if not hasattr(model, "step_with_diagnostics"):
+        return model.run(state, steps, first=False), {}
+    state = model.run(state, steps - 1, first=False)
+    return model.step_with_diagnostics(state, first=False)
+
+
+def _grid(model):
+    """(the model's transforms or column grid, the global nlat)."""
+    T = model.core.T if hasattr(model, "core") else model.T
+    return T, T.nlat
+
+
+def _spectral_block(state):
+    """This rank's block of the case's spectral temperature or vorticity
+    (None for the column model)."""
+    if hasattr(state, "dyn"):
+        return state.dyn.ts.curr
+    return state.vors.curr if hasattr(state, "vors") else None
+
+
+def _gcm_case(mesh, outdir, name):
+    """One case on the mesh: the gathered state and the last step's grid
+    diagnostics (rank 0 writes them), each rank's spectral block."""
+    model = gcm_model(name, mesh)
+    T, nlat = _grid(model)
+    state, diag = gcm_steps(name, model, gcm_start(name, model))
+    block = _spectral_block(state)
+    _write(mesh, outdir, name, state, nlat, T, block)
+    diag = {k: v for k, v in diag.items() if torch.is_tensor(v) and v.ndim >= 2}
+    if diag:
+        _write(mesh, outdir, f"{name}_diag", diag, nlat)
+    if hasattr(model, "diagnostics"):
+        # the global means and extrema (all_reduce over the ranks)
+        _write(mesh, outdir, f"{name}_means", global_means(model, state), nlat)
+    return model, state
+
+
+def global_means(model, state):
+    """The 0-d entries of model.diagnostics(state): means and extrema."""
+    return {k: v for k, v in model.diagnostics(state).items()
+            if torch.is_tensor(v) and v.ndim == 0}
+
+
+def _mima_tiles(mesh, outdir, model, state):
+    """The MiMA state (rad_cache, tke, bucket_depth among its leaves) as a
+    tile set, read back into this rank's blocks bit for bit."""
+    from isca_tpu_torch.io import distributed as dio
+
+    nlat = model.core.T.nlat
+    tiles = os.path.join(outdir, "mima_tiles")
+    dio.save_restart_sharded(tiles, state, mesh, nlat=nlat)
+    dist.barrier()
+    loaded = dio.load_restart_sharded(tiles, model.initial_state(), mesh)
+    for (path, a), (_, b) in zip(flatten_with_paths(state), flatten_with_paths(loaded)):
+        assert a.dtype == b.dtype and a.device == b.device and torch.equal(a, b), path
+    # a tile set written by isca_tpu (the test process) into this rank's blocks
+    dist.barrier()
+
+
+def run_gcm(rank, outdir, which):
+    """GCM_FILES[which]'s cases on a mesh of NRANKS CPU ranks."""
+    import warnings
+
+    mesh = make_mesh(NRANKS, device="cpu")
+    with warnings.catch_warnings():
+        # the committed RRTMG-LW k-tables are synthetic and say so
+        warnings.simplefilter("ignore", RuntimeWarning)
+        for name in GCM_FILES[which]:
+            model, state = _gcm_case(mesh, outdir, name)
+            if name == "mima":
+                _mima_tiles(mesh, outdir, model, state)
