@@ -11,9 +11,13 @@ Phases, each printed as one JSON line:
            on seeded random inputs at the shapes of the main paths (sw_flux:
            8192 x 25 x 112 for RRTMG-SW, 8192 x 25 x 28 for SOCRATES,
            8192 x 40 x 112 for the namelist MiMA and 4096 x 25 x 112 for one
-           of 2 ranks' bands at T42, clear and cloudy) and at an odd shape,
-           times both with CUDA events, and reports the kernel's launch plan
-           and resident blocks per SM;
+           of 2 ranks' bands at T42, clear and cloudy; and past its former
+           limits, 8192 x 80 x 112, 8192 x 128 x 112, 8192 x 25 x 256 and
+           float64 2048 x 100 x 112; tf32_split bit for bit at the four
+           transform products' inputs of HS T85L25 and the giant's T213L30,
+           3 fields of all levels, "high" and "default") and at an odd
+           shape, times both with CUDA events, and reports sw_flux's launch
+           plan and resident blocks per SM;
   slice    drives the column path: the RRTM single-column model at T42 width
            (64 x 128 columns, 25 levels, float32, RRTMG-SW + grey LW) through
            ColumnModel.run; compares 3 steps with the same 3 steps on the CPU
@@ -166,6 +170,30 @@ Phases, each printed as one JSON line:
            the `giant` phase's 3 T213L30 card steps against the CPU's
            float32 and float64 runs (a cpu_reference job) by the 3x rule;
            `sharded` then holds its T213L30 giant to the same CPU runs.
+  precision
+           transform_precision "high" (3xTF32) and "default" (one TF32
+           pass), spectral/precision.py: each transform product (DFT and
+           Legendre, analysis and synthesis) at T85L25 and T213L30 shapes
+           on the card against the plain version of the same mode on the
+           CPU (within PRECISION_ULPS x sqrt(K') units of FP32 rounding of
+           |x||table|, plus the subnormal operands the tensor cores flush;
+           random inputs and a smooth positive one, whose
+           mean signed error shows the tensor cores' round-toward-zero
+           sums), with its largest difference from "highest"; HS T85L25 3
+           steps at each mode against the CPU's run of that mode: the 3x
+           rule at the mode's own CPU gap reported per field (it fails at
+           "high", see PERF.md), 3x the larger of the CPU's float32-versus-
+           float64 gaps at that mode and at exact FP32 asserted, and the run
+           not equal to "highest"'s (tf32_split's launches counted in the
+           "high" run), then one timed day per mode; the giant T213L30 and MiMA T42L25
+           (sw_flux once per step) 3 steps at "high" against the card's
+           "highest" within HIGH_VS_HIGHEST_FACTOR x the CPU's own float32-
+           versus-float64 gap; ms per step by mode for HS and the giant and
+           the giant's "dft" and "legendre" device ms by mode; the cuBLAS
+           TF32 switch off after every call; every "highest" run equal to
+           its earlier phase's to the bit; the port's climate gate
+           (isca_tpu_torch.climate_gate) for Held-Suarez at T42 "high" with
+           its fewest steps (2 x 256), its criteria printed, not asserted.
   sharded  the sharded run (isca_tpu_torch.parallel.mesh): 2 ranks spawned
            on the one card over gloo, which stages its collectives through
            the host. Every model isca_tpu shards, each the configuration of
@@ -201,9 +229,10 @@ and ras_bl; sw_flux must not launch on the paths of simple, giant,
 moist_land, continents_sst and ras_bl (its count on each is printed). `experiment` also runs the stirred
 barotropic model in two chained one-day segments, held to the bit (the
 stirring key too) against one direct two-day run. `namelist`,
-`giant_t213_compare` and `sharded` run last. Then a `summary` line with each phase's seconds, the
-`{"kernels": [...]}` summary line (its launches_by_path: each path's
-sw_flux count, the sharded models' per rank), the raw `nvidia-smi` name and
+`giant_t213_compare`, `precision` and `sharded` run last. Then a `summary` line with each phase's seconds, the
+`{"kernels": [...]}` summary line (sw_flux with its launches_by_path: each
+path's count, the sharded models' per rank; tf32_split with the `precision`
+phase's HS "high" count), the raw `nvidia-smi` name and
 power limit line, and last `{"ok": true, "device": {...}}`. Any failed phase
 raises, so the script exits non-zero and prints no last line; so does a run
 without a CUDA device.
@@ -321,24 +350,27 @@ SW_FLUX_OPS_PER_ELEMENT = {False: 150, True: 265}
 SOCRATES_G = 28        # g-points of SOCRATES' synthetic SW spectrum
 
 
-def sw_flux_inputs(batch, L, cloudy, device, G=112, seed=SEED):
-    """Random solve inputs in the style of tests/test_rrtmg_sw.py _inputs."""
-    rng = np.random.default_rng(seed)
-    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
-    tau = rng.gamma(1.5, 0.08, batch + (L, G))
-    zinc = rng.uniform(0.0, 12.0, batch + (G,))
+def sw_flux_inputs(batch, L, cloudy, device, G=112, seed=SEED, dtype=np.float32):
+    """Random solve inputs from the distributions of tests/test_rrtmg_sw.py
+    _inputs (optical depths gamma(1.5, 0.08), gamma(2, 2) more in a cloud,
+    the rest uniform), drawn on `device` from a seeded torch generator: a
+    host draw of the largest shapes took most of the `kernels` phase."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    tdtype = torch.float32 if dtype == np.float32 else torch.float64
+    new = lambda shape: torch.empty(shape, dtype=tdtype, device=device)
+    u = lambda lo, hi, shape: new(shape).uniform_(lo, hi, generator=gen)
+    gamma = lambda k, theta, shape: theta * torch._standard_gamma(new(shape).fill_(k),
+                                                                  generator=gen)
+    layer = batch + (L, G)
+    tau = gamma(1.5, 0.08, layer)
+    zinc = u(0.0, 12.0, batch + (G,))
     zinc[..., ::7] = 0.0                      # some g-points carry no flux
-    args = [f32(tau), f32(rng.uniform(0.0, 1.0, batch + (L, G))),
-            f32(rng.uniform(0.0, 0.8, batch + (L, G))),
-            f32(rng.uniform(0.05, 1.0, batch + (1, 1))),
-            f32(rng.uniform(0.05, 0.6, batch + (G,))),
-            f32(rng.uniform(0.05, 0.6, batch + (G,))), f32(zinc)]
+    args = [tau, u(0.0, 1.0, layer), u(0.0, 0.8, layer), u(0.05, 1.0, batch + (1, 1)),
+            u(0.05, 0.6, batch + (G,)), u(0.05, 0.6, batch + (G,)), zinc]
     cloud = None
     if cloudy:
-        cloud = (f32(tau + rng.gamma(2.0, 2.0, batch + (L, G))),
-                 f32(rng.uniform(0.3, 1.0, batch + (L, G))),
-                 f32(rng.uniform(0.0, 0.9, batch + (L, G))),
-                 f32(rng.uniform(0.0, 1.0, batch + (L, G))))
+        cloud = (tau + gamma(2.0, 2.0, layer), u(0.3, 1.0, layer), u(0.0, 0.9, layer),
+                 u(0.0, 1.0, layer))
     return args, cloud
 
 
@@ -352,21 +384,23 @@ def sw_flux_bound_ms(B, L, G, cloudy, itemsize=4):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_sw_flux(name, batch, L, cloudy, G=112):
-    """Kernel against sw_flux_solve_reference on the card, both timed, at
-    batch x L x G (G = 112 for RRTMG-SW, 28 for SOCRATES' SW spectrum)."""
+def check_sw_flux(name, batch, L, cloudy, G=112, dtype=np.float32, reps=20):
+    """Kernel against sw_flux_solve_reference on the card, both timed (the
+    median of `reps` runs), at batch x L x G (G = 112 for RRTMG-SW, 28 for
+    SOCRATES' SW spectrum)."""
     from isca_tpu_torch.physics import rrtmg_sw
 
-    args, cloud = sw_flux_inputs(batch, L, cloudy, "cuda", G=G)
+    args, cloud = sw_flux_inputs(batch, L, cloudy, "cuda", G=G, dtype=dtype)
     kernel = lambda: rrtmg_sw.sw_flux_solve(*args, cloud=cloud)
     plain = lambda: rrtmg_sw.sw_flux_solve_reference(*args, cloud=cloud)
     out = kernel()
     torch.cuda.synchronize()
     ref = plain()
     # tests/test_rrtmg_sw.py's float32 tolerance for the fused solve:
-    # reassociated float32 sums over G and L differ by ~1e-4 relative.
+    # reassociated float32 sums over G and L differ by ~1e-4 relative; in
+    # float64 the same reassociation, tests/test_torch_card.py's 1e-10.
     scale = float(ref[0].abs().max())
-    rtol, atol = 5e-4, 1e-4 * scale
+    rtol, atol = (5e-4, 1e-4 * scale) if dtype == np.float32 else (1e-10, 1e-12 * scale)
     errs, ok = {}, True
     for a, b, field in zip(out, ref, ("swd", "swu", "dird")):
         if not bool(torch.isfinite(a).all()):
@@ -375,12 +409,15 @@ def check_sw_flux(name, batch, L, cloudy, G=112):
         errs[field] = float((a - b).abs().max())
         ok = ok and excess <= 0.0
     B = int(np.prod(batch))
-    bound_ms, bound_by = sw_flux_bound_ms(B, L, G, cloudy)
-    plan = rrtmg_sw.sw_flux_plan(L, G, 4)
-    case = dict(case=name, shape=[B, L, G], cloudy=cloudy, plan=plan._asdict(),
-                blocks_per_sm=rrtmg_sw.sw_flux_blocks_per_sm(L, G, torch.float32, cloudy),
+    itemsize = np.dtype(dtype).itemsize
+    bound_ms, bound_by = sw_flux_bound_ms(B, L, G, cloudy, itemsize)
+    plan = rrtmg_sw.sw_flux_plan(L, G, itemsize)
+    case = dict(case=name, shape=[B, L, G], dtype=np.dtype(dtype).name, cloudy=cloudy,
+                plan=plan._asdict(),
+                blocks_per_sm=rrtmg_sw.sw_flux_blocks_per_sm(L, G, args[0].dtype, cloudy),
                 max_abs_err=max(errs.values()), errs=errs, rtol=rtol, atol=atol,
-                ms=cuda_time_ms(kernel), plain_ms=cuda_time_ms(plain),
+                ms=cuda_time_ms(kernel, reps=reps),
+                plain_ms=cuda_time_ms(plain, reps=reps),
                 bound_ms=bound_ms, bound_us=1e3 * bound_ms, bound_by=bound_by, ok=ok)
     emit({"phase": "kernels", "kernel": "sw_flux", **case})
     if not ok:
@@ -390,6 +427,12 @@ def check_sw_flux(name, batch, L, cloudy, G=112):
 
 
 def phase_kernels():
+    """Each kernel against its plain version: (sw_flux cases, tf32_split
+    cases), the main path's case first in each."""
+    return sw_flux_cases(), tf32_split_cases()
+
+
+def sw_flux_cases():
     return [check_sw_flux("t42_clear", (8192,), 25, False),
             check_sw_flux("t42_cloudy", (8192,), 25, True),
             # the namelist MiMA (T42L40) and one of 2 ranks' bands at T42L25
@@ -400,7 +443,19 @@ def phase_kernels():
             check_sw_flux("socrates_clear", (8192,), 25, False, G=SOCRATES_G),
             check_sw_flux("socrates_cloudy", (8192,), 25, True, G=SOCRATES_G),
             check_sw_flux("odd_clear", (7,), 5, False),
-            check_sw_flux("odd_cloudy", (7,), 5, True)]
+            check_sw_flux("odd_cloudy", (7,), 5, True),
+            # deeper and wider than any path yet: L + 1 beyond the threads'
+            # levels is looped, G beyond a block's threads is chunked
+            *(check_sw_flux(f"L{L}_G{G}_{'cloudy' if c else 'clear'}", (8192,), L, c, G=G,
+                            reps=SW_FLUX_NEW_REPS)
+              for L, G in SW_FLUX_NEW_SHAPES for c in (False, True)),
+            *(check_sw_flux(f"f64_L100_{'cloudy' if c else 'clear'}", (2048,), 100, c,
+                            dtype=np.float64, reps=SW_FLUX_NEW_REPS) for c in (False, True))]
+
+
+# sw_flux shapes past the kernel's former limits (L <= 64, G <= 128)
+SW_FLUX_NEW_SHAPES = ((80, 112), (128, 112), (25, 256))
+SW_FLUX_NEW_REPS = 5      # their plain version takes up to 170 ms a call
 
 
 # ---------------------------------------------------------------------------
@@ -563,14 +618,14 @@ SCHEME_STAGES = ("cg_drag", "mg_drag", "ras", "my25", "edt", "entrain", "stable_
 ALL_STAGES = HS_STAGES + MIMA_STAGES + STIR_STAGES + CLOUD_STAGES + SCHEME_STAGES
 
 
-def hs_config(dtype):
+def hs_config(dtype, precision="highest"):
     from isca_tpu_torch.dycore.primitive import PrimitiveConfig
     from isca_tpu_torch.models.dry import HeldSuarezConfig
     from isca_tpu_torch.physics.hs_forcing import HSForcingConfig
 
     return HeldSuarezConfig(
         core=PrimitiveConfig(resolution="T85", num_levels=25, dt=600.0,
-                             transform_precision="highest", dtype=dtype),
+                             transform_precision=precision, dtype=dtype),
         forcing=HSForcingConfig())
 
 
@@ -850,13 +905,14 @@ MIMA_DT_RAD = 7200.0          # exp/namelists/mima.nml:87
 MIMA_DT_RAD_STEPS, MIMA_DT_RAD_PROFILE_STEPS = 20, 10
 
 
-def mima_config(dtype, dt_rad=0.0):
+def mima_config(dtype, dt_rad=0.0, precision="highest"):
     """mima_test_case.py as written (GreyMoistConfig(): T42, 25 uneven-sigma
     levels, dt = 720 s; RRTMG-SW + RRTMG-LW, seasonal sun, o3 1e-6; full
-    Betts-Miller) with exact transforms; dt_rad > dt substeps radiation."""
+    Betts-Miller) with exact transforms (or `precision`'s); dt_rad > dt
+    substeps radiation."""
     from isca_tpu_torch.models.moist import mima_test_case_config
 
-    cfg = mima_test_case_config(dtype=dtype, transform_precision="highest")
+    cfg = mima_test_case_config(dtype=dtype, transform_precision=precision)
     if dt_rad:
         cfg = dataclasses.replace(cfg, physics=dataclasses.replace(cfg.physics, dt_rad=dt_rad))
     return cfg
@@ -2424,6 +2480,344 @@ def phase_giant_t213_compare(cpu_refs):
     COMPARE_REFS["giant"] = (card, cpu["float32"][0], cpu["float64"][0])
 
 
+# ---------------------------------------------------------------------------
+# precision: transform_precision "high" (3xTF32) and "default" (one TF32
+# pass), and the port's climate gate
+# ---------------------------------------------------------------------------
+
+PRECISION_MODES = ("high", "default")
+PRECISION_SHAPES = (("T85", 25), ("T213", 30))   # HS T85L25, the giant's T213L30
+PRECISION_FIELDS = 3              # fields per product (the dycore batches 2 to 6)
+# card against the plain version of the same mode: the operands are rounded
+# alike, so the two differ by their FP32 sums over K' terms (K' = the parts
+# times the contracted length; cuBLAS's order, and the tensor cores' sums
+# round toward zero, -3.75 u |x||table| on average for positive operands,
+# measured on an H100), and the tensor cores flush subnormal operands (the
+# Legendre tables hold some near the poles): at most PRECISION_ULPS x
+# (sqrt(K') u |x| |table| + K' tiny max|x|) per entry
+PRECISION_ULPS = 8.0
+FP32_U = 2.0 ** -24
+FP32_TINY = 2.0 ** -126   # the smallest normal float32
+# "high" against "highest" after 3 card steps: the 3x rule scaled by
+# 2^(24-22), because the two TF32 parts leave 2^-22 of each operand where
+# FP32 rounding leaves 2^-24 (tests/test_torch_precision.py measured 4.3x
+# the gap at T21 on the CPU): 12x the CPU's float32-versus-float64 gap that
+# the `mima` and `giant_t213_compare` phases measured
+HIGH_VS_HIGHEST_FACTOR = 3.0 * 2.0 ** (24 - 22)
+PRECISION_HS_TIMED_STEPS = 144    # one model day per mode
+PRECISION_GATE_DAYS = 3           # the gate's fewest steps: 256 spin-up, 256 averaged
+
+
+def _tf32_off(where):
+    """The cuBLAS TF32 switch is off again (isca_tpu_torch sets it off; the
+    precision module turns it on only around its own products)."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(f"precision: the TF32 switch was left on after {where}")
+
+
+def _product_inputs(T, L, seed):
+    """Seeded float32 inputs of T's four products for L levels, shaped as
+    the main path gives them: {name: (x, axis, table name, fn name, K)}."""
+    rng = np.random.default_rng(seed)
+    M1, N1 = T.num_fourier + 1, T.num_spherical + 1
+    lead = (PRECISION_FIELDS, L)
+    r = lambda *shape: rng.standard_normal(lead + shape).astype(np.float32)
+    # a smooth positive field (a temperature), whose FP32 sums all add: the
+    # card's TF32 tensor-core sums round toward zero, so this case shows
+    # their bias, which random signs hide
+    smooth = (250.0 + r(T.nlat, T.nlon)).astype(np.float32)
+    return {"dft_analysis": (r(T.nlat, T.nlon), -1, "dft_ana", "_dft", T.nlon),
+            "dft_analysis_smooth": (smooth, -1, "dft_ana", "_dft", T.nlon),
+            "legendre_analysis": (r(T.nlat, M1, 2), -3, "Pw", "_analysis", T.nlat),
+            "legendre_synthesis": (r(M1, N1, 2), -2, "P", "_synthesis", N1),
+            "dft_synthesis": (r(T.nlat, 2 * M1), -1, "dft_syn", "_dft", 2 * M1)}
+
+
+def _check_products(res, L, mode):
+    """Each transform product of `res` at `mode` on the card against the
+    plain version of the same mode on the CPU, and against the card's
+    "highest" product of the same inputs."""
+    from isca_tpu_torch.spectral import precision as prec
+    from isca_tpu_torch.spectral import transforms as ttr
+
+    Tc = ttr.make_transforms(res, dtype=torch.float32, precision=mode)
+    Th = ttr.make_transforms(res, dtype=torch.float32, device="cpu", precision=mode)
+    out = {}
+    for name, (x, axis, table, fn_name, K) in _product_inputs(Tc, L, SEED + L).items():
+        fn = getattr(ttr, fn_name)
+        xc, xh = torch.as_tensor(x, device="cuda"), torch.as_tensor(x)
+        card = ttr._product(Tc, xc, axis, getattr(Tc, table), getattr(Tc, table + "_x"), fn)
+        _tf32_off(f"{res} {name} at {mode!r}")
+        plain = ttr._product(Th, xh, axis, getattr(Th, table), getattr(Th, table + "_x"), fn)
+        highest = fn(getattr(Tc, table), xc)
+        # |x| |table| over the split operands, exact FP32 (TF32 is off)
+        mag = fn(getattr(Tc, table + "_x").abs(), prec.split(xc, axis, mode).abs())
+        parts = prec.PARTS[mode]
+        err = (card.double().cpu() - plain.double()).abs()
+        scale = (np.sqrt(parts * K) * FP32_U * mag.double()
+                 + parts * K * FP32_TINY * float(xc.abs().max())).cpu()
+        ratio = float((err / scale).max())
+        vs_highest = float((card - highest).abs().max() / highest.abs().max())
+        # the card's signed error against float64, in units of u |x||table|
+        signed = ((card.double() - fn(getattr(Tc, table + "_x").double(),
+                                      prec.split(xc, axis, mode).double()))
+                  / (FP32_U * mag.double()).clamp_min(1e-300))
+        out[name] = {"shape": list(x.shape), "K": K, "parts": parts,
+                     "max_abs_err_vs_plain": float(err.max()),
+                     "err_over_sqrtK_u_mag": ratio, "bound_ulps": PRECISION_ULPS,
+                     "mean_signed_err_vs_f64_over_u_mag": float(signed.mean()),
+                     "max_rel_diff_vs_highest": vs_highest, "ok": ratio <= PRECISION_ULPS}
+        del card, plain, highest, mag
+    return out
+
+
+def check_tf32_split(name, shape, axis, mode):
+    """The split kernel against split_reference on the card (bit for bit: the
+    same integer rounding), both timed, with its memory bound."""
+    from isca_tpu_torch.spectral import precision as prec
+
+    rng = np.random.default_rng(SEED)
+    x = torch.as_tensor(rng.standard_normal(shape).astype(np.float32) * 100.0, device="cuda")
+    kernel = lambda: prec.split(x, axis, mode)
+    plain = lambda: prec.split_reference(x, axis, mode)
+    out = kernel()
+    torch.cuda.synchronize()
+    ref = plain()
+    equal = bool(torch.equal(out, ref))
+    parts = prec.PARTS[mode]
+    nbytes = 4 * x.numel() * (1 + parts)
+    case = dict(case=name, shape=list(shape), axis=axis, mode=mode, parts=parts,
+                max_abs_err=float((out - ref).abs().max()), bit_equal=equal,
+                ms=cuda_time_ms(kernel), plain_ms=cuda_time_ms(plain),
+                bound_ms=1e3 * nbytes / PEAK_BYTES_PER_S, bound_by="bytes", ok=equal)
+    emit({"phase": "kernels", "kernel": "tf32_split", **case})
+    if not equal:
+        raise RuntimeError(f"tf32_split {name}: kernel differs from its plain version")
+    return case
+
+
+def tf32_split_cases():
+    """The split at the products of HS T85L25 and the giant's T213L30 (3
+    fields of all levels): the first case is the main path's."""
+    cases = []
+    for res, L, nlat, nlon, M1, N1 in (("T85", 25, 128, 256, 86, 87),
+                                        ("T213", 30, 320, 640, 214, 215)):
+        lead = (PRECISION_FIELDS, L)
+        for name, shape, axis in (("dft_analysis", (nlat, nlon), -1),
+                                  ("legendre_analysis", (nlat, M1, 2), -3),
+                                  ("legendre_synthesis", (M1, N1, 2), -2),
+                                  ("dft_synthesis", (nlat, 2 * M1), -1)):
+            for mode in PRECISION_MODES:
+                cases.append(check_tf32_split(f"{res}L{L}_{name}_{mode}", lead + shape,
+                                              axis, mode))
+    return cases
+
+
+def _hs_steps(mode, device):
+    from isca_tpu_torch.models.dry import HeldSuarezModel
+
+    model = HeldSuarezModel(hs_config(torch.float32, mode), device=device)
+    state = model.run(model.initial_state(), HS_COMPARE_STEPS)
+    return model, state, hs_fields(model, state)
+
+
+def _bit_equal(a, b):
+    """The fields of b that a does not equal to the bit."""
+    return sorted(k for k in b if not np.array_equal(a[k], b[k]))
+
+
+def _vs_highest(gpu, highest, cpu32, cpu64, fields):
+    """Each field's card difference from the card's "highest" run against
+    HIGH_VS_HIGHEST_FACTOR times the CPU's float32-versus-float64 gap."""
+    compare = {}
+    for k in fields:
+        gap = float(np.abs(cpu32[k] - cpu64[k]).max())
+        compare[k] = {"max_abs_diff_vs_highest": float(np.abs(gpu[k] - highest[k]).max()),
+                      "tolerance": HIGH_VS_HIGHEST_FACTOR * gap, "cpu_f32_vs_f64": gap}
+    return compare, all(c["max_abs_diff_vs_highest"] <= c["tolerance"]
+                        for c in compare.values())
+
+
+def phase_precision():
+    """transform_precision "high" and "default" on the card: the transform
+    products at T85L25 and T213L30 against their plain version, HS T85L25 at
+    each mode against the CPU, the giant T213L30 and MiMA T42L25 at "high"
+    against the card's "highest", ms per step by mode, the TF32 switch after
+    every call, the "highest" runs equal to the earlier phases' to the bit,
+    and the port's Held-Suarez gate at T42 with its fewest steps. Returns the
+    tf32_split launches of the HS "high" run."""
+    from isca_tpu_torch import climate_gate
+    from isca_tpu_torch.models.giant import giant_planet_model
+    from isca_tpu_torch.models.moist import GreyMoistModel
+    from isca_tpu_torch.physics import rrtmg_sw
+    from isca_tpu_torch.spectral import precision as prec
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    _tf32_off("the earlier phases")
+    products = {f"{res}L{L}": {mode: _check_products(res, L, mode) for mode in PRECISION_MODES}
+                for res, L in PRECISION_SHAPES}
+    bad = [(r, m, n) for r, d in products.items() for m, rows in d.items()
+           for n, row in rows.items() if not row["ok"]]
+    emit({"phase": "precision", "part": "products", "dtype": "torch.float32",
+          "bound": f"|card - plain| <= {PRECISION_ULPS} (sqrt(K') u |x||table| + K' tiny "
+                   "max|x|), u = 2^-24, tiny = 2^-126",
+          "products": products})
+    if bad:
+        raise RuntimeError(f"precision: products beyond their bound: {bad}")
+
+    # Held-Suarez T85L25, 3 steps at each mode against the CPU's run of that
+    # mode by the 3x rule; "highest" again, equal to the dycore phase's
+    card_ref, _, cpu64 = COMPARE_REFS["held_suarez"]
+    hs, ms_hs = {}, {}
+    for mode in ("highest",) + PRECISION_MODES:
+        if mode == "high":
+            torch.cuda.synchronize()
+            prec.split.launches = 0
+        model, state, gpu = _hs_steps(mode, None)
+        torch.cuda.synchronize()
+        if mode == "high":
+            split_launches = prec.split.launches
+            if split_launches == 0:
+                raise RuntimeError("precision: HS at 'high' launched no tf32_split")
+        _tf32_off(f"HS steps at {mode!r}")
+        if mode == "highest":
+            differ = _bit_equal(gpu, card_ref)
+            if differ:
+                raise RuntimeError(f"precision: HS 'highest' differs from the dycore "
+                                   f"phase's run in {differ}")
+            hs[mode] = {"bit_equal_to_dycore_phase": True}
+        else:
+            # The repo's 3x rule at this mode (3x the CPU's own float32-
+            # versus-float64 gap at this mode) is reported field by field and
+            # not asserted: at "high" the CPU's gap is 0.15-0.64x its exact-
+            # FP32 gap, below the 0.97-1.5x of it by which the card's exact run
+            # already differs from the CPU's (summation order), so the rule
+            # fails there on most fields. What is asserted is 3x the larger
+            # of the two gaps (at "default" the mode's own, which is larger).
+            # The mode must also change the run: an exact-FP32 "high" would
+            # equal the "highest" run to the bit.
+            cpu32 = hs_fields(*_hs_steps(mode, "cpu")[:2])
+            cpu32_exact = COMPARE_REFS["held_suarez"][1]
+            compare = {}
+            for k in HS_FIELDS:
+                gap_mode = float(np.abs(cpu32[k] - cpu64[k]).max())
+                gap_exact = float(np.abs(cpu32_exact[k] - cpu64[k]).max())
+                diff = float(np.abs(gpu[k] - cpu32[k]).max())
+                compare[k] = {"max_abs_diff": diff,
+                              "rule_3x_mode_gap": HS_TOL_FACTOR * gap_mode,
+                              "rule_3x_mode_gap_holds": diff <= HS_TOL_FACTOR * gap_mode,
+                              "asserted_tolerance": HS_TOL_FACTOR * max(gap_mode, gap_exact),
+                              "cpu_mode_f32_vs_f64": gap_mode,
+                              "cpu_exact_f32_vs_f64": gap_exact,
+                              "card_vs_cpu_f64": float(np.abs(gpu[k] - cpu64[k]).max())}
+            ok = all(c["max_abs_diff"] <= c["asserted_tolerance"] for c in compare.values())
+            same = _bit_equal(gpu, card_ref) == []
+            hs[mode] = {"compare": compare, "ok": ok and not same,
+                        "rule_3x_mode_gap_fails": sorted(
+                            k for k, c in compare.items() if not c["rule_3x_mode_gap_holds"]),
+                        "bit_equal_to_highest": same,
+                        "max_rel_diff_vs_highest": {
+                            k: float(np.abs(gpu[k] - card_ref[k]).max() / np.abs(card_ref[k]).max())
+                            for k in HS_FIELDS}}
+            if same:
+                raise RuntimeError(f"precision: HS at {mode!r} equals the 'highest' run to "
+                                   "the bit: the mode did not reach the products")
+            if not ok:
+                raise RuntimeError(f"precision: HS at {mode!r} disagrees with the CPU's "
+                                   f"run of that mode beyond the asserted bound: {compare}")
+        state, _, runs = _timed_runs(model, state, 10, PRECISION_HS_TIMED_STEPS, 1)
+        ms_hs[mode] = runs[0]
+        _tf32_off(f"HS timed run at {mode!r}")
+        del model, state
+    emit({"phase": "precision", "part": "held_suarez", "resolution": "T85", "levels": 25,
+          "compare_steps": HS_COMPARE_STEPS, "tolerance_factor": HS_TOL_FACTOR,
+          "modes": hs, "ms_per_step": ms_hs, "timed_steps": PRECISION_HS_TIMED_STEPS,
+          "tf32_split_launches_high": split_launches,
+          "tf32_split_launches_per_step": split_launches / HS_COMPARE_STEPS})
+
+    # the giant T213L30: "high" held to the card's "highest", ms per step and
+    # the dft and legendre ranges by mode
+    giant_ref, g32, g64 = COMPARE_REFS["giant"]
+    giant, ms_giant, stages = {}, {}, {}
+    for mode in ("highest",) + PRECISION_MODES:
+        model = giant_planet_model(dtype=torch.float32, transform_precision=mode, **GIANT_BIG)
+        gpu, _, state = _diag_compare_run(model, model.initial_state(), GIANT_FIELDS)
+        _tf32_off(f"giant steps at {mode!r}")
+        if mode == "highest":
+            differ = _bit_equal(gpu, giant_ref)
+            if differ:
+                raise RuntimeError(f"precision: giant 'highest' differs from the giant "
+                                   f"phase's run in {differ}")
+            giant[mode] = {"bit_equal_to_giant_phase": True}
+        else:
+            compare, ok = _vs_highest(gpu, giant_ref, g32, g64, GIANT_FIELDS)
+            giant[mode] = {"vs_highest": compare, "held": mode == "high", "ok": ok}
+            if mode == "high" and not ok:
+                raise RuntimeError(f"precision: giant at 'high' differs from 'highest' "
+                                   f"beyond {HIGH_VS_HIGHEST_FACTOR}x the gap: {compare}")
+        # the `giant` phase's timing: one warm-up step, the median of three runs
+        state, _, runs = _timed_runs(model, state, GIANT_WARMUP_STEPS - GIANT_COMPARE_STEPS,
+                                     GIANT_TIMED_STEPS, GIANT_TIMED_RUNS)
+        ms_giant[mode] = statistics.median(runs)
+        _, _, stage_rows, _ = profile_stages(model, state, ("dft", "legendre"))
+        _tf32_off(f"giant timed run at {mode!r}")
+        stages[mode] = {k: {f: v[f] for f in ("device_ms_per_step", "launches_per_step")}
+                        for k, v in stage_rows.items()}
+        del model, state
+        torch.cuda.empty_cache()
+    emit({"phase": "precision", "part": "giant", "resolution": "T213", "levels": 30,
+          "compare_steps": FR_COMPARE_STEPS, "factor": HIGH_VS_HIGHEST_FACTOR,
+          "modes": giant, "ms_per_step": ms_giant, "timed_runs": GIANT_TIMED_RUNS,
+          "steps_per_run": GIANT_TIMED_STEPS,
+          "stages_device_ms": stages})
+
+    # MiMA T42L25 (sw_flux on its radiation steps) at "high" against "highest"
+    mima_ref, m32, m64 = COMPARE_REFS["mima"]
+    mima = {}
+    for mode in ("highest", "high"):
+        torch.cuda.synchronize()
+        rrtmg_sw.sw_flux_solve.launches = 0
+        gpu = _mima_compare_run(GreyMoistModel(mima_config(torch.float32, precision=mode)))[0]
+        torch.cuda.synchronize()
+        launches = rrtmg_sw.sw_flux_solve.launches
+        _tf32_off(f"MiMA steps at {mode!r}")
+        if launches != FR_COMPARE_STEPS:
+            raise RuntimeError(f"precision: MiMA at {mode!r} launched sw_flux {launches} "
+                               f"times in {FR_COMPARE_STEPS} steps")
+        if mode == "highest":
+            differ = _bit_equal(gpu, mima_ref)
+            if differ:
+                raise RuntimeError(f"precision: MiMA 'highest' differs from the mima "
+                                   f"phase's run in {differ}")
+            mima[mode] = {"bit_equal_to_mima_phase": True, "sw_flux_launches": launches}
+            continue
+        compare, ok = _vs_highest(gpu, mima_ref, m32, m64, MIMA_FIELDS)
+        mima[mode] = {"vs_highest": compare, "ok": ok, "sw_flux_launches": launches}
+        if not ok:
+            raise RuntimeError(f"precision: MiMA at 'high' differs from 'highest' beyond "
+                               f"{HIGH_VS_HIGHEST_FACTOR}x the gap: {compare}")
+    emit({"phase": "precision", "part": "mima", "resolution": "T42", "levels": 25,
+          "compare_steps": FR_COMPARE_STEPS, "factor": HIGH_VS_HIGHEST_FACTOR,
+          "modes": mima})
+
+    # the port's Held-Suarez gate at T42, "high", its fewest steps: the
+    # criteria are printed, not asserted (nothing spins up in 512 steps)
+    results = {}
+    t0 = time.perf_counter()
+    climate_gate.gate_held_suarez(PRECISION_GATE_DAYS, results, resolution="T42",
+                                  precision="high")
+    _tf32_off("the Held-Suarez gate")
+    emit({"phase": "precision", "part": "climate_gate", "gate": "held_suarez",
+          "resolution": "T42", "precision": "high", "days_arg": PRECISION_GATE_DAYS,
+          "steps": 2 * climate_gate.CH, "seconds": time.perf_counter() - t0,
+          "criteria": {k: {"value": v.get("value"), "pass": v["pass"]}
+                       for k, v in results.items()},
+          "note": "criteria printed, not asserted: 512 steps spin nothing up",
+          "phase_seconds": time.perf_counter() - t_phase})
+    return split_launches
+
+
 def phase_sharded(smi):
     """The sharded phase: gloo on this card; NCCL when there are two cards.
     Returns each model's sw_flux launches per rank."""
@@ -2483,7 +2877,7 @@ def _run_phases(kind, smi, cpu_refs, t_start):
     """Every phase after the build, in order; the phase seconds, the kernels
     summary, the nvidia-smi line and the last line."""
     PHASE_SECONDS["device_and_build"] = time.perf_counter() - t_start
-    cases = timed_phase("kernels", phase_kernels)
+    cases, split_cases = timed_phase("kernels", phase_kernels)
     launches, model, state, ms_per_step = timed_phase("slice", phase_slice)
     timed_phase("profile", phase_profile, model, state, ms_per_step)
     hs_model, hs_state, hs_ms = timed_phase("dycore", phase_dycore)
@@ -2506,6 +2900,7 @@ def _run_phases(kind, smi, cpu_refs, t_start):
     del hs_model, hs_state, fr_model, fr_state, model, state
     namelist_launches = timed_phase("namelist", phase_namelist, cpu_refs)
     timed_phase("giant_t213_compare", phase_giant_t213_compare, cpu_refs)
+    split_launches = timed_phase("precision", phase_precision)
     sharded_launches = timed_phase("sharded", phase_sharded, smi)
     emit({"phase": "summary", "phase_seconds": PHASE_SECONDS,
           "cpu_reference_seconds": {k: f.result()["seconds"] for k, f in cpu_refs.items()},
@@ -2525,7 +2920,17 @@ def _run_phases(kind, smi, cpu_refs, t_start):
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
         "library_ms": None,
-        "ok": all(c["ok"] for c in cases), "cases": cases}]})
+        "ok": all(c["ok"] for c in cases), "cases": cases}, {
+        "name": "tf32_split", "route": "cuda",
+        "source": "isca_tpu_torch/csrc/tf32_split.cu",
+        "replaces": "isca_tpu/spectral/transforms.py:161",
+        "launches": split_launches,
+        "launches_by_path": {"precision_hs_T85L25_high": split_launches},
+        "max_abs_err": max(c["max_abs_err"] for c in split_cases),
+        "ms": split_cases[0]["ms"], "plain_ms": split_cases[0]["plain_ms"],
+        "bound_ms": split_cases[0]["bound_ms"], "bound_by": split_cases[0]["bound_by"],
+        "library_ms": None,
+        "ok": all(c["ok"] for c in split_cases), "cases": split_cases}]})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

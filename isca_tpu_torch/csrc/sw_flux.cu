@@ -41,8 +41,10 @@
 //  * Down sweep, top to surface, with the flux combine at each level
 //    (stage 3): a warp-shuffle g-sum into per-warp partials; after the
 //    chunk, thread l adds its level's partials in warp order to a register
-//    sum, chunk after chunk, so the result is deterministic. At the end
-//    thread l writes the three outputs of level l.
+//    sum, chunk after chunk, so the result is deterministic; at the end
+//    thread l writes the three outputs of level l. Past the threads (L + 1
+//    > threads), thread t also owns levels t + threads, t + 2 threads, ...,
+//    whose sums it keeps in their outputs (the first chunk writes them).
 //  * The sweeps are serial chains of divisions and shuffles over the levels
 //    on only gc threads, so they are latency-bound; more resident blocks
 //    hide them better than wider chunks do. Two chunks of 56 at the main
@@ -50,8 +52,10 @@
 //    12% (clear) and 22% (cloudy) less time than one chunk of 112 (80.5 KB,
 //    2 blocks per SM) on an H100 (PERF.md).
 //  * Shared memory per block: ((5L + 2(L+1)) gc + 3(L+1) ceil(gc/32))
-//    values. Limits: L <= 64, G <= 128, float32 and float64; float64 at
-//    L = 64 needs two chunks of 56 (G = 112) or three of 43 (G = 128).
+//    values, with gc <= threads. Any G (in as many chunks as it takes) and
+//    any L whose chunk of one g-point fits a block: 10L + 5 values, so
+//    L <= 5810 in float32 and 2905 in float64. Float64 at L = 64 takes two
+//    chunks of 56 (G = 112) or three of 43 (G = 128).
 //  * Built with --fmad=false so each multiply and add rounds as the plain
 //    PyTorch version's separate elementwise kernels do.
 //
@@ -63,8 +67,6 @@
 
 namespace {
 
-constexpr int kMaxL = 64;    // SW_FLUX_MAX_L in physics/rrtmg_sw.py
-constexpr int kMaxG = 128;   // SW_FLUX_MAX_G
 constexpr int kMaxThreads = 384;   // __launch_bounds__; sw_flux_plan uses 256
 constexpr int kMaxSmem = 232448;  // bytes a block may use on sm_90 (SW_FLUX_MAX_SMEM)
 
@@ -187,8 +189,8 @@ __device__ __forceinline__ T warp_sum(T v) {
   return v;
 }
 
-// grid: one block per column; block: `threads` (a multiple of 32, >= gc and
-// > L) threads; dynamic shared memory: smem_bytes<T>(L, gc).
+// grid: one block per column; block: `threads` (a multiple of 32, >= gc)
+// threads; dynamic shared memory: smem_bytes<T>(L, gc).
 template <typename T, bool kCloudy>
 __global__ void __launch_bounds__(kMaxThreads) sw_flux_kernel(
     const T* __restrict__ tau, const T* __restrict__ w0, const T* __restrict__ asy,
@@ -210,6 +212,7 @@ __global__ void __launch_bounds__(kMaxThreads) sw_flux_kernel(
   const int b = blockIdx.x;
   const T mu = mu0[b];
   const size_t col = static_cast<size_t>(b) * L * G;
+  const size_t out0 = static_cast<size_t>(b) * (L + 1);
 
   // thread t <= L sums level t over the chunks
   T acc_d = T(0), acc_u = T(0), acc_b = T(0);
@@ -316,26 +319,39 @@ __global__ void __launch_bounds__(kMaxThreads) sw_flux_kernel(
     }
     __syncthreads();
 
-    if (t <= L) {
+    // Thread t owns levels t, t + nt, ...: it sums level t over the chunks
+    // in registers (summing it in the outputs, a read-modify-write per
+    // chunk, cost 2-5% on the cloudy main-path shapes) and the levels past
+    // nt (L >= nt only) in their outputs, the first chunk adding to zero.
+    // Only thread t touches its levels, so the sums over chunks need no
+    // barrier, and both are deterministic.
+    for (int lv = t; lv <= L; lv += nt) {
       T sd = T(0), su = T(0), sb = T(0);
       for (int k = 0; k < sweep_warps; ++k) {
-        sd += s_part[(t * 3 + 0) * sweep_warps + k];
-        su += s_part[(t * 3 + 1) * sweep_warps + k];
-        sb += s_part[(t * 3 + 2) * sweep_warps + k];
+        sd += s_part[(lv * 3 + 0) * sweep_warps + k];
+        su += s_part[(lv * 3 + 1) * sweep_warps + k];
+        sb += s_part[(lv * 3 + 2) * sweep_warps + k];
       }
-      acc_d += sd;
-      acc_u += su;
-      acc_b += sb;
+      if (lv == t) {
+        acc_d += sd;
+        acc_u += su;
+        acc_b += sb;
+        continue;
+      }
+      const size_t o = out0 + lv;
+      const bool first_chunk = g0 == 0;
+      swd[o] = (first_chunk ? T(0) : swd[o]) + sd;
+      swu[o] = (first_chunk ? T(0) : swu[o]) + su;
+      dird[o] = (first_chunk ? T(0) : dird[o]) + sb;
     }
     // The next chunk overwrites s_part only after the barrier that ends its
     // phase 1, so this read needs no barrier of its own.
   }
 
   if (t <= L) {
-    const size_t o = static_cast<size_t>(b) * (L + 1) + t;
-    swd[o] = acc_d;
-    swu[o] = acc_u;
-    dird[o] = acc_b;
+    swd[out0 + t] = acc_d;
+    swu[out0 + t] = acc_u;
+    dird[out0 + t] = acc_b;
   }
 }
 
@@ -347,11 +363,11 @@ auto kernel_of(bool cloudy) {
 // The launch plan's checks; 0 or cudaErrorInvalidValue.
 template <typename T>
 int check_plan(int L, int G, int threads, int chunks, int smem) {
-  if (L < 1 || L > kMaxL || G < 1 || G > kMaxG) return cudaErrorInvalidValue;
+  if (L < 1 || G < 1) return cudaErrorInvalidValue;
   if (chunks < 1 || chunks > G) return cudaErrorInvalidValue;
   const int gc = (G + chunks - 1) / chunks;
   if ((chunks - 1) * gc >= G) return cudaErrorInvalidValue;  // an empty chunk
-  if (threads % 32 != 0 || threads < gc || threads <= L || threads > kMaxThreads)
+  if (threads % 32 != 0 || threads < gc || threads > kMaxThreads)
     return cudaErrorInvalidValue;
   if (smem < 0 || static_cast<size_t>(smem) != smem_bytes<T>(L, gc) || smem > kMaxSmem)
     return cudaErrorInvalidValue;

@@ -29,9 +29,6 @@ spectral ones: the transforms transpose between the two, the global fixers
 and means all_reduce (spectral.transforms.area_weighted_mean), the (m=0,
 n=0) corrections go to the rank holding m = 0, and the grid tracers'
 finite-volume advection exchanges halo rows with the neighbouring bands.
-
-Not ported (it raises NotImplementedError): transform precisions other
-than "highest".
 """
 
 from __future__ import annotations
@@ -109,7 +106,9 @@ class PrimitiveConfig:
     num_steps: int = 1
     vert_coord_option: str = "even_sigma"
     vert_difference_option: str = "simmons_and_burridge"  # or 'mcm'
-    # only 'highest' (exact FP32/FP64 products, no TF32) is ported
+    # the transform products: 'highest' (exact), 'high' (3xTF32) or
+    # 'default' (one TF32 pass) in float32; float64 ignores it
+    # (spectral/precision.py)
     transform_precision: str = "highest"
     fourier_method: str = "dft"            # 'dft' (dense matrix product) | 'fft'
     truncation_shape: str = "triangular"   # triang_trunc nml: or 'rhomboidal'

@@ -56,7 +56,7 @@ class BarotropicConfig:
     eddy_lat: float = 45.0
     spec_tracer: bool = True
     valid_range_v: tuple[float, float] = (-1.0e3, 1.0e3)
-    transform_precision: str = "highest"   # only "highest" is ported
+    transform_precision: str = "highest"   # or "high", "default" (spectral/precision.py)
     truncation_shape: str = "triangular"   # or 'rhomboidal'
     fourier_inc: int = 1
     # stirring_nml

@@ -75,7 +75,7 @@ class ShallowConfig:
     init_vortex_h_h_0: float = 0.1
     spec_tracer: bool = True
     valid_range_v: tuple[float, float] = (-1.0e3, 1.0e3)
-    transform_precision: str = "highest"   # only "highest" is ported
+    transform_precision: str = "highest"   # or "high", "default" (spectral/precision.py)
     truncation_shape: str = "triangular"   # or 'rhomboidal'
     fourier_inc: int = 1
     # physics (shallow_physics_nml); damp times in days if negative like reference

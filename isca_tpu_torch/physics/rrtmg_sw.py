@@ -595,9 +595,7 @@ def sw_flux_solve_reference(tau, w0, g, mu0, alb_dir_g, alb_dif_g, zincflx,
     return wsum(fd), wsum(fu), wsum(tdbt)
 
 
-# Limits of csrc/sw_flux.cu (kMaxL, kMaxG, kMaxSmem there).
-SW_FLUX_MAX_L = 64
-SW_FLUX_MAX_G = 128
+# Limits of csrc/sw_flux.cu (kMaxSmem, and the threads of its plans).
 SW_FLUX_MAX_SMEM = 232448       # bytes of shared memory a block may use on sm_90
 SW_FLUX_THREADS = 256
 # Fewest g-chunks for float32 at L <= 32 (the main path's T42L25 shape):
@@ -620,14 +618,29 @@ def sw_flux_smem_bytes(L, gc, itemsize):
     return itemsize * ((5 * L + 2 * (L + 1)) * gc + 3 * (L + 1) * -(-gc // 32))
 
 
+def sw_flux_max_levels(itemsize) -> int:
+    """The most levels whose chunk of one g-point fits a block's shared
+    memory (10 L + 5 values): 5810 in float32, 2905 in float64."""
+    return (SW_FLUX_MAX_SMEM // itemsize - 5) // 10
+
+
 def sw_flux_plan(L, G, itemsize) -> SwFluxPlan:
     """The fewest g-chunks (at least SW_FLUX_SHALLOW_F32_CHUNKS for float32
-    at L <= 32) whose shared memory fits one block; each chunk but the last
-    holds ceil(G / chunks) g-points and none is empty."""
-    if not (1 <= L <= SW_FLUX_MAX_L and 1 <= G <= SW_FLUX_MAX_G):
-        raise ValueError(f"sw_flux_solve: L={L}, G={G} outside the kernel's "
-                         f"limits L<={SW_FLUX_MAX_L}, G<={SW_FLUX_MAX_G}")
-    chunks = SW_FLUX_SHALLOW_F32_CHUNKS if itemsize == 4 and L <= 32 else 1
+    at L <= 32) of at most SW_FLUX_THREADS g-points whose shared memory fits
+    one block; each chunk but the last holds ceil(G / chunks) g-points and
+    none is empty. Any G; any L up to sw_flux_max_levels (ValueError past
+    it, with the bytes a one-g-point chunk would need)."""
+    if L < 1 or G < 1:
+        raise ValueError(f"sw_flux_solve: L={L}, G={G} outside the kernel's limits: "
+                         "both must be at least 1")
+    if sw_flux_smem_bytes(L, 1, itemsize) > SW_FLUX_MAX_SMEM:
+        raise ValueError(
+            f"sw_flux_solve: L={L} outside the kernel's limits: a chunk of one g-point "
+            f"needs {sw_flux_smem_bytes(L, 1, itemsize)} bytes of shared memory, more "
+            f"than the {SW_FLUX_MAX_SMEM} a block may use (L <= "
+            f"{sw_flux_max_levels(itemsize)} at {itemsize} bytes a value)")
+    chunks = max(SW_FLUX_SHALLOW_F32_CHUNKS if itemsize == 4 and L <= 32 else 1,
+                 -(-G // SW_FLUX_THREADS))
     while sw_flux_smem_bytes(L, -(-G // chunks), itemsize) > SW_FLUX_MAX_SMEM:
         chunks += 1
     gc = -(-G // chunks)

@@ -7,7 +7,11 @@ Port of isca_tpu/spectral/transforms.py, single-device path (reference:
 * The Legendre analysis/synthesis are dense contractions over precomputed
   Pbar / Pbar*w tables, and the longitude Fourier stage is a dense real-DFT
   matrix product (or `torch.fft.rfft` with fourier_method="fft"): batched
-  matrix products on cuBLAS at exact FP32 (TF32 is off, isca_tpu_torch/__init__.py).
+  matrix products on cuBLAS. Their precision is the transforms' `precision`
+  (isca_tpu's transform_precision, spectral/precision.py): "highest" is
+  exact FP32 (TF32 is off, isca_tpu_torch/__init__.py), "high" 3xTF32 and
+  "default" one TF32 pass, each with the data operand split at the call and
+  the constant tables split once, here; float64 and the FFT ignore the mode.
 * Complex values never meet a complex matrix product: the tables are real,
   so each contraction runs on the split real/imaginary parts (a complex
   cuBLAS product sums in another order), as isca_tpu does.
@@ -32,9 +36,6 @@ layouts, and a local Legendre product (the reverse for synthesis); with
 overlap_chunks > 1 the leading batch axis runs as that many chains whose
 transposes overlap the previous chain's Legendre product. Global means are
 an `all_reduce`.
-
-Not ported: any transform precision other than "highest" raises
-NotImplementedError.
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ from torch.profiler import record_function
 
 from isca_tpu_torch import resolve_device
 from isca_tpu_torch.parallel.mesh import check_mesh
-from isca_tpu_torch.spectral import gauss
+from isca_tpu_torch.spectral import gauss, precision as _precision
 
 # Standard triangular truncations -> (nlon, nlat), as in the reference's RESOLUTIONS
 # table (src/extra/python/isca/experiment.py:29-56).
@@ -115,6 +116,21 @@ class SphericalTransforms:
     overlap_chunks: int = 1
     m_start: int = 0        # global index of this rank's first m row
     lat_start: int = 0      # global index of this rank's first latitude
+    # the products' precision ("highest", "high" or "default"), and the
+    # constant tables split for it along their contracted axis (None when
+    # the products are exact: "highest" or float64): dft_ana_x
+    # (parts*nlon, 2(M+1)), dft_syn_x (parts*2(M+1), nlon), Pw_x
+    # (parts*nlat, M+1, N+2), P_x (nlat, M+1, parts*(N+2))
+    precision: str = "highest"
+    dft_ana_x: Any = None
+    dft_syn_x: Any = None
+    Pw_x: Any = None
+    P_x: Any = None
+
+    @property
+    def prec(self) -> str:
+        """The products' precision mode (isca_tpu's jax.lax.Precision name)."""
+        return self.precision
 
     @property
     def spec_shape(self) -> tuple[int, int]:
@@ -189,7 +205,11 @@ def make_transforms(
     carry exact zeros end to end: their table entries, operator coefficients
     and triangle mask are 0.
 
-    precision: only "highest" (exact FP32 or FP64 products) is ported.
+    precision: "highest", "high" or "default", in any case (isca_tpu's
+    jax.lax.Precision names; ValueError on any other): exact FP32, 3xTF32
+    or one TF32 pass for every DFT and Legendre product of float32
+    transforms (spectral/precision.py); float64 and fourier_method="fft"'s
+    FFT ignore it.
     mesh (isca_tpu_torch.parallel.mesh.Mesh): the sharded transforms, with
     this rank's band and m block of the tables (the mesh path always runs
     the dense DFT); overlap_chunks: chains per sharded transform.
@@ -200,10 +220,7 @@ def make_transforms(
         check_mesh(mesh)
         if device is None:
             device = mesh.device
-    if precision != "highest":
-        raise NotImplementedError(
-            f"transform precision {precision!r} is not ported: only 'highest' "
-            "(exact products, no TF32) is")
+    precision = _precision.canonical(precision)
     device = resolve_device(device)
     if isinstance(truncation, str):
         truncation, d_nlon, d_nlat = RESOLUTIONS[truncation]
@@ -321,6 +338,16 @@ def make_transforms(
 
     f = lambda x: torch.as_tensor(np.ascontiguousarray(x, np.float64)).to(
         device=device, dtype=dtype)
+    dft_ana = np.concatenate([dft_cos_f, dft_sin_f], axis=1)
+    dft_syn = np.concatenate([dft_cos_i, dft_sin_i], axis=0)
+    split = {}
+    if _precision.splits(precision, dtype):
+        # rounded on the host once, as the plain version rounds
+        cut = lambda x, axis: _precision.split_table(
+            torch.as_tensor(np.ascontiguousarray(x, np.float64)).to(torch.float32),
+            axis, precision).to(device)
+        split = dict(dft_ana_x=cut(dft_ana, 0), dft_syn_x=cut(dft_syn, 0),
+                     Pw_x=cut(Pw, 0), P_x=cut(P, 2))
     return SphericalTransforms(
         truncation=truncation,
         num_fourier=M,
@@ -355,14 +382,44 @@ def make_transforms(
         dft_sin_f=f(dft_sin_f),
         dft_cos_i=f(dft_cos_i),
         dft_sin_i=f(dft_sin_i),
-        dft_ana=f(np.concatenate([dft_cos_f, dft_sin_f], axis=1)),
-        dft_syn=f(np.concatenate([dft_cos_i, dft_sin_i], axis=0)),
+        dft_ana=f(dft_ana),
+        dft_syn=f(dft_syn),
         fourier_method=fourier_method,
         mesh=mesh,
         overlap_chunks=max(int(overlap_chunks), 1),
         m_start=m_start,
         lat_start=lat_start,
+        precision=precision,
+        **split,
     )
+
+
+# ---------------------------------------------------------------------------
+# The DFT and Legendre products at the transforms' precision.
+# ---------------------------------------------------------------------------
+
+def _dft(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return torch.matmul(x, table)
+
+
+def _analysis(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("jmn,...jmr->...mnr", table, x)
+
+
+def _synthesis(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("jmn,...mnr->...jmr", table, x)
+
+
+def _product(T: SphericalTransforms, x: torch.Tensor, axis: int,
+             table: torch.Tensor, table_x, fn) -> torch.Tensor:
+    """fn(table, x), a product contracting x's `axis`, at T's precision:
+    exact with the table as it is, else on x split along `axis` against the
+    table's split `table_x`, with TF32 on for this product alone."""
+    if table_x is None:
+        return fn(table, x)
+    xs = _precision.split(x.contiguous(), axis, T.precision)
+    with _precision.tf32_products(xs.device):
+        return fn(table_x, xs)
 
 
 # ---------------------------------------------------------------------------
@@ -384,7 +441,7 @@ def grid_to_fourier(T: SphericalTransforms, g: torch.Tensor) -> torch.Tensor:
                 F = torch.nn.functional.pad(F, (0, T.num_fourier - T.num_fourier_true))
             return F
         M1 = T.num_fourier + 1
-        FF = torch.matmul(g, T.dft_ana)
+        FF = _product(T, g, -1, T.dft_ana, T.dft_ana_x, _dft)
         return torch.complex(FF[..., :M1], FF[..., M1:])
 
 
@@ -395,7 +452,8 @@ def fourier_to_grid(T: SphericalTransforms, F: torch.Tensor) -> torch.Tensor:
             nfreq = T.nlon // 2 + 1
             Ffull = torch.nn.functional.pad(F, (0, nfreq - F.shape[-1]))
             return torch.fft.irfft(Ffull * T.nlon, n=T.nlon, dim=-1).to(T.dtype)
-        return torch.matmul(torch.cat([F.real, F.imag], dim=-1), T.dft_syn).to(T.dtype)
+        return _product(T, torch.cat([F.real, F.imag], dim=-1), -1, T.dft_syn,
+                        T.dft_syn_x, _dft).to(T.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -409,7 +467,7 @@ def fourier_to_spec(T: SphericalTransforms, F: torch.Tensor) -> torch.Tensor:
     batched product over the split (re, im) parts (trailing axis r).
     """
     with record_function("legendre"):
-        ss = torch.einsum("jmn,...jmr->...mnr", T.Pw, torch.view_as_real(F))
+        ss = _product(T, torch.view_as_real(F), -3, T.Pw, T.Pw_x, _analysis)
         return torch.view_as_complex(ss.contiguous())
 
 
@@ -417,7 +475,7 @@ def spec_to_fourier(T: SphericalTransforms, s: torch.Tensor) -> torch.Tensor:
     """Legendre synthesis: F(j,m) = sum_n s_mn Pbar_mn(j), as one real
     batched product over the split (re, im) parts."""
     with record_function("legendre"):
-        FF = torch.einsum("jmn,...mnr->...jmr", T.P, torch.view_as_real(s))
+        FF = _product(T, torch.view_as_real(s), -2, T.P, T.P_x, _synthesis)
         return torch.view_as_complex(FF.contiguous())
 
 
@@ -476,7 +534,7 @@ def _analysis_send(T, g):
     n, lead = T.mesh.size, g.shape[:-2]
     k = len(lead)
     with record_function("dft"):
-        FF = torch.matmul(g, T.dft_ana)                 # (..., lat_band, 2 (M+1))
+        FF = _product(T, g, -1, T.dft_ana, T.dft_ana_x, _dft)   # (..., lat_band, 2 (M+1))
     FF = FF.reshape(*lead, g.shape[-2], 2, n, T.spec_shape[0])
     FF = FF.permute(k + 2, *range(k), k, k + 3, k + 1)
     return T.mesh.all_to_all(FF, async_op=True) + (lead,)
@@ -487,7 +545,7 @@ def _analysis_recv(T, out, work, lead):
     work.wait()
     F = out.movedim(0, len(lead)).reshape(*lead, T.nlat, T.spec_shape[0], 2)
     with record_function("legendre"):
-        ss = torch.einsum("jmn,...jmr->...mnr", T.Pw, F)
+        ss = _product(T, F, -3, T.Pw, T.Pw_x, _analysis)
     return torch.view_as_complex(ss.contiguous())
 
 
@@ -496,7 +554,7 @@ def _synthesis_send(T, s):
     transpose: rank r gets band r, as (size, ..., lat_band, m_block, 2)."""
     n, lead = T.mesh.size, s.shape[:-2]
     with record_function("legendre"):
-        FF = torch.einsum("jmn,...mnr->...jmr", T.P, torch.view_as_real(s))
+        FF = _product(T, torch.view_as_real(s), -2, T.P, T.P_x, _synthesis)
     FF = FF.reshape(*lead, n, T.nlat // n, T.spec_shape[0], 2).movedim(len(lead), 0)
     return T.mesh.all_to_all(FF, async_op=True) + (lead,)
 
@@ -509,7 +567,7 @@ def _synthesis_recv(T, out, work, lead):
     F = out.permute(*range(1, k + 1), k + 1, k + 3, 0, k + 2)
     F = F.reshape(*lead, out.shape[k + 1], 2 * (T.num_fourier + 1))
     with record_function("dft"):
-        return torch.matmul(F, T.dft_syn).to(T.dtype)
+        return _product(T, F, -1, T.dft_syn, T.dft_syn_x, _dft).to(T.dtype)
 
 
 # ---------------------------------------------------------------------------

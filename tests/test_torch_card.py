@@ -16,8 +16,11 @@ boundary-layer schemes) at T21 on the card against the CPU at float32;
 2 gloo ranks sharing the card (HS steps against the card alone, and the
 MiMA test case's sw_flux on each rank's band against its plain version),
 the native library, and exp/namelists/mima.nml built on the card through
-the port's namelist reader. Every test here needs a CUDA device and skips
-without one.
+the port's namelist reader; the transform precision modes (the tf32_split
+kernel bit for bit against its plain version, each TF32 product against
+its plain version, the cuBLAS TF32 switch restored after every call, and a "highest"
+Held-Suarez step bit-equal before and after a "high" one). Every test here
+needs a CUDA device and skips without one.
 
 This file imports torch, numpy and isca_tpu_torch only, so it runs where JAX
 is absent (tests/conftest.py imports JAX; skip it there):
@@ -103,6 +106,20 @@ def test_sw_flux_kernel_matches_plain_other_widths(cloudy, dtype, batch, L, G):
     check_kernel_matches_plain(cloudy, dtype, batch, L, G)
 
 
+@pytest.mark.parametrize("cloudy", [False, True])
+@pytest.mark.parametrize("dtype,batch,L,G", [
+    (np.float32, (6,), 80, 112),     # two chunks of 56 (one no longer fits)
+    (np.float32, (6,), 128, 112),
+    (np.float32, (3,), 300, 112),    # L + 1 > 256 threads: the levels loop
+    (np.float32, (6,), 25, 256),     # two chunks of 128
+    (np.float32, (3,), 25, 1000),    # four chunks of 250
+    (np.float64, (4,), 100, 112),    # three chunks of 38
+])
+def test_sw_flux_kernel_matches_plain_deep_and_wide(cloudy, dtype, batch, L, G):
+    """Shapes past the kernel's former limits (L <= 64, G <= 128)."""
+    check_kernel_matches_plain(cloudy, dtype, batch, L, G)
+
+
 @pytest.mark.parametrize("dtype,L,G", [(torch.float32, 25, 112), (torch.float64, 64, 128)])
 def test_sw_flux_plan_is_resident(dtype, L, G):
     for cloudy in (False, True):
@@ -121,7 +138,7 @@ def test_sw_flux_kernel_rejects_bad_inputs():
         bad_args[i] = bad
         with pytest.raises(ValueError, match=match):
             P.sw_flux_solve(*bad_args)
-    long_args, _ = solve_inputs(False, (2,), P.SW_FLUX_MAX_L + 1, np.float32)
+    long_args, _ = solve_inputs(False, (1,), P.sw_flux_max_levels(4) + 1, np.float32)
     with pytest.raises(ValueError, match="limits"):
         P.sw_flux_solve(*long_args)
     with pytest.raises(TypeError, match="dtype"):
@@ -802,3 +819,109 @@ def test_native_library_builds_on_the_card_machine():
     full = np.arange(24, dtype=np.float32).reshape(6, 4)
     np.testing.assert_array_equal(native.combine_tiles([full[:2], full[2:]], [0, 2], 6), full)
     assert native.rss_kb() > 1000
+
+
+# ---- transform precision: "high" (3xTF32) and "default" (one TF32 pass) ----
+
+@pytest.mark.parametrize("mode", ["high", "default"])
+@pytest.mark.parametrize("shape,axis", [((3, 25, 128, 256), -1), ((2, 7, 33, 5, 2), -3),
+                                        ((5, 86, 87, 2), -2), ((1,), 0)])
+def test_tf32_split_kernel_equals_plain(mode, shape, axis):
+    from isca_tpu_torch.spectral import precision as prec
+
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal(shape).astype(np.float32) * 10.0 ** rng.uniform(-30, 30, shape)
+    x.reshape(-1)[:3] = [np.inf, np.nan, 3.4028235e38][:x.size]
+    xc = torch.as_tensor(x.astype(np.float32), device="cuda")
+    before = prec.split.launches
+    out = prec.split(xc, axis, mode)
+    torch.cuda.synchronize()
+    assert prec.split.launches == before + 1
+    ref = prec.split_reference(xc.cpu(), axis, mode)
+    np.testing.assert_array_equal(out.cpu().numpy().view(np.uint32)[np.isfinite(ref.numpy())],
+                                  ref.numpy().view(np.uint32)[np.isfinite(ref.numpy())])
+    assert torch.equal(out.cpu().isnan(), ref.isnan())
+    with pytest.raises(ValueError, match="contiguous"):
+        prec.split(torch.zeros(4, 6, device="cuda").t(), -1, mode)
+    with pytest.raises(TypeError, match="float32"):
+        prec.split(xc.double(), axis, mode)
+
+
+@pytest.mark.parametrize("mode", ["high", "default"])
+@pytest.mark.parametrize("res", ["T42", "T85"])
+def test_tf32_products_match_plain_version(mode, res):
+    """Each transform product (DFT and Legendre, analysis and synthesis) at
+    the mode on the card against the plain version of the same mode on the
+    CPU: the operands round alike, so the two differ by the order and
+    rounding of the FP32 sums, at most 8 (sqrt(K') u |x||table| + K' tiny
+    max|x|) per entry (K' terms, u = 2^-24, tiny = 2^-126: the tensor
+    cores flush subnormal operands to zero, and the Legendre tables hold
+    subnormal values near the poles); the TF32 switch is off after each
+    product, and the card's "high" and "default" products differ from its
+    exact ones."""
+    from isca_tpu_torch.spectral import precision as prec
+    from isca_tpu_torch.spectral import transforms as ttr
+
+    Tc = ttr.make_transforms(res, dtype=torch.float32, precision=mode)
+    Th = ttr.make_transforms(res, dtype=torch.float32, device="cpu", precision=mode)
+    rng = np.random.default_rng(9)
+    M1, N1 = Tc.num_fourier + 1, Tc.num_spherical + 1
+    cases = {"dft_analysis": ((Tc.nlat, Tc.nlon), -1, "dft_ana", ttr._dft, Tc.nlon),
+             "legendre_analysis": ((Tc.nlat, M1, 2), -3, "Pw", ttr._analysis, Tc.nlat),
+             "legendre_synthesis": ((M1, N1, 2), -2, "P", ttr._synthesis, N1),
+             "dft_synthesis": ((Tc.nlat, 2 * M1), -1, "dft_syn", ttr._dft, 2 * M1)}
+    for name, (shape, axis, table, fn, K) in cases.items():
+        x = torch.as_tensor(rng.standard_normal((4, 25) + shape).astype(np.float32))
+        card = ttr._product(Tc, x.cuda(), axis, getattr(Tc, table), getattr(Tc, table + "_x"),
+                            fn)
+        assert torch.backends.cuda.matmul.allow_tf32 is False
+        plain = ttr._product(Th, x, axis, getattr(Th, table), getattr(Th, table + "_x"), fn)
+        mag = fn(getattr(Th, table + "_x").abs(), prec.split(x, axis, mode).abs())
+        k = prec.PARTS[mode] * K
+        bound = 8.0 * (np.sqrt(k) * 2.0 ** -24 * mag.double()
+                       + k * 2.0 ** -126 * float(x.abs().max()))
+        assert ((card.cpu().double() - plain.double()).abs() <= bound).all(), name
+        assert not torch.equal(card.cpu(), fn(getattr(Th, table), x)), name
+
+
+def test_tf32_switch_restored_after_products_and_errors():
+    from isca_tpu_torch.spectral import precision as prec
+
+    matmul = torch.backends.cuda.matmul
+    assert matmul.allow_tf32 is False
+    with prec.tf32_products("cuda"):
+        assert matmul.allow_tf32 is True
+    assert matmul.allow_tf32 is False
+    with pytest.raises(ZeroDivisionError):
+        with prec.tf32_products("cuda"):
+            1 / 0
+    assert matmul.allow_tf32 is False
+    # a caller who had it on finds it on
+    matmul.allow_tf32 = True
+    try:
+        with prec.tf32_products("cuda"):
+            pass
+        assert matmul.allow_tf32 is True
+    finally:
+        matmul.allow_tf32 = False
+
+
+def test_highest_step_bit_equal_around_a_high_step():
+    """A "highest" Held-Suarez step is the same to the bit before and after
+    a "high" step ran in the same process: TF32 reaches no exact product."""
+    from isca_tpu_torch.convert import primitive_state_to_numpy
+
+    shape = dict(resolution="T42", num_levels=10, dt=1200.0)
+    exact = HeldSuarezModel(HeldSuarezConfig(core=PrimitiveConfig(dtype=torch.float32, **shape)))
+    high = HeldSuarezModel(HeldSuarezConfig(core=PrimitiveConfig(
+        dtype=torch.float32, transform_precision="high", **shape)))
+    s0 = exact.run(exact.initial_state(), 2)
+    before = primitive_state_to_numpy(exact.step(s0))
+    s_high = high.step(s0)
+    torch.cuda.synchronize()
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    after = primitive_state_to_numpy(exact.step(s0))
+    for k in before:
+        np.testing.assert_array_equal(after[k], before[k], err_msg=k)
+    differ = primitive_state_to_numpy(s_high)
+    assert any(not np.array_equal(differ[k], before[k]) for k in before)

@@ -187,8 +187,12 @@ def test_unported_model_options_raise(monkeypatch):
     # that is not a parallel.mesh.Mesh still raises
     with pytest.raises(TypeError, match="Mesh"):
         THSM(THSC(core=dataclasses.replace(core, mesh=object())), device="cpu")
-    with pytest.raises(NotImplementedError):
-        THSM(THSC(core=dataclasses.replace(core, transform_precision="high")), device="cpu")
+    # every transform precision of isca_tpu is ported
+    # (tests/test_torch_precision.py); a name jax.lax.Precision lacks raises
+    assert THSM(THSC(core=dataclasses.replace(core, transform_precision="high")),
+                device="cpu").core.T.prec == "high"
+    with pytest.raises(ValueError, match="precision"):
+        THSM(THSC(core=dataclasses.replace(core, transform_precision="fast")), device="cpu")
     # the water fixer is ported; the dry model has no sphum tracer for it
     with pytest.raises(ValueError, match="sphum"):
         THSM(THSC(core=dataclasses.replace(core, do_water_correction=True)), device="cpu")

@@ -412,8 +412,12 @@ def test_unported_core_options_raise():
     # is not a parallel.mesh.Mesh still raises
     with pytest.raises(TypeError, match="Mesh"):
         TCore(dataclasses.replace(base, mesh=object()), device="cpu")
-    with pytest.raises(NotImplementedError, match="precision"):
-        TCore(dataclasses.replace(base, transform_precision="high"), device="cpu")
+    # every transform precision is ported (tests/test_torch_precision.py);
+    # a name jax.lax.Precision lacks raises
+    assert TCore(dataclasses.replace(base, transform_precision="High"),
+                 device="cpu").T.prec == "high"
+    with pytest.raises(ValueError, match="precision"):
+        TCore(dataclasses.replace(base, transform_precision="bf16"), device="cpu")
     # spectral_diagnostics is ported now (tests/test_torch_harness.py holds
     # it against isca_tpu); the options above still raise
     core = TCore(base, device="cpu")

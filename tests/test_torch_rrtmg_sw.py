@@ -193,25 +193,28 @@ def test_sw_flux_solve_rejects_other_devices():
         P.sw_flux_solve(*meta)
 
 
-@pytest.mark.parametrize("G", [1, 33, 112, 128])
+@pytest.mark.parametrize("G", [1, 33, 112, 128, 256, 1000])
 @pytest.mark.parametrize("itemsize", [4, 8])
 def test_sw_flux_plan_fits_every_shape(itemsize, G):
-    """The kernel's launch plan for every accepted L: a block fits in the
-    card's shared memory, its chunks cover the g-points exactly with none
-    empty, and its threads are whole warps that cover a chunk's sweeps and
-    the L+1 output levels (csrc/sw_flux.cu check_plan)."""
-    for L in range(1, P.SW_FLUX_MAX_L + 1):
+    """The kernel's launch plan for every L up to 160 and at the largest L
+    it takes: a block fits in the card's shared memory, its chunks cover the
+    g-points exactly with none empty, and its threads are whole warps that
+    cover a chunk's sweeps (csrc/sw_flux.cu check_plan; the threads loop
+    over the L+1 output levels)."""
+    max_l = P.sw_flux_max_levels(itemsize)
+    for L in [*range(1, 161), max_l]:
         threads, chunks, smem = plan = P.sw_flux_plan(L, G, itemsize)
         gc = -(-G // chunks)
         assert (chunks - 1) * gc < G <= chunks * gc, plan
         assert smem == P.sw_flux_smem_bytes(L, gc, itemsize) <= 232448, plan
-        assert threads % 32 == 0 and threads >= gc and threads > L, plan
+        assert threads % 32 == 0 and threads >= gc, plan
     # the main path's float32 T42L25 shape in its preferred chunks; float64
     # at L = 64 needs 2 chunks of 56, or 3 of 43 at G = 128
     assert P.sw_flux_plan(25, 112, 4).chunks == P.SW_FLUX_SHALLOW_F32_CHUNKS
     assert P.sw_flux_plan(64, 112, 8).chunks == 2
     assert P.sw_flux_plan(64, 128, 8).chunks == 3
-    for L, G_bad in ((0, G), (P.SW_FLUX_MAX_L + 1, G), (1, P.SW_FLUX_MAX_G + 1)):
+    assert max_l == (5810 if itemsize == 4 else 2905)
+    for L, G_bad in ((0, G), (max_l + 1, G), (1, 0)):
         with pytest.raises(ValueError, match="limits"):
             P.sw_flux_plan(L, G_bad, itemsize)
 

@@ -133,9 +133,12 @@ def test_unported_options_raise():
     # mesh that is not a parallel.mesh.Mesh still raises
     with pytest.raises(TypeError, match="Mesh"):
         ttr.make_transforms("T21", device="cpu", mesh=object())
+    # "high" and "default" are ported (tests/test_torch_precision.py); a
+    # name jax.lax.Precision lacks raises
     for precision in ("high", "default"):
-        with pytest.raises(NotImplementedError, match="precision"):
-            ttr.make_transforms("T21", device="cpu", precision=precision)
+        assert ttr.make_transforms("T21", device="cpu", precision=precision).prec == precision
+    with pytest.raises(ValueError, match="precision"):
+        ttr.make_transforms("T21", device="cpu", precision="fastest")
     with pytest.raises(ValueError, match="fourier_inc"):
         ttr.make_transforms("T21", device="cpu", fourier_inc=2, fourier_method="fft")
     with pytest.raises(ValueError, match="truncation_shape"):
