@@ -13,10 +13,15 @@ Phases, each printed as one JSON line:
            8192 x 40 x 112 for the namelist MiMA and 4096 x 25 x 112 for one
            of 2 ranks' bands at T42, clear and cloudy; and past its former
            limits, 8192 x 80 x 112, 8192 x 128 x 112, 8192 x 25 x 256 and
-           float64 2048 x 100 x 112; tf32_split bit for bit at the four
-           transform products' inputs of HS T85L25 and the giant's T213L30,
-           3 fields of all levels, "high" and "default") and at an odd
-           shape, times both with CUDA events, and reports sw_flux's launch
+           float64 2048 x 100 x 112; tf32_product, the "high" and "default"
+           transform products on the tensor cores, at the four products of
+           HS T85L25 and the giant's T213L30, 3 fields of all levels, both
+           modes, rank 1 of 2's m block and latitude band at T85L25, the
+           ragged T42L25, and with positive operands, whose mean signed
+           error shows the tensor cores' sums, within PRECISION_ULPS) and at
+           an odd shape, times both (sw_flux with CUDA events, tf32_product
+           by its device time under torch.profiler beside the exact and, at
+           "default", the TF32 cuBLAS product), and reports sw_flux's launch
            plan and resident blocks per SM;
   slice    drives the column path: the RRTM single-column model at T42 width
            (64 x 128 columns, 25 levels, float32, RRTMG-SW + grey LW) through
@@ -184,8 +189,10 @@ Phases, each printed as one JSON line:
            rule at the mode's own CPU gap reported per field (it fails at
            "high", see PERF.md), 3x the larger of the CPU's float32-versus-
            float64 gaps at that mode and at exact FP32 asserted, and the run
-           not equal to "highest"'s (tf32_split's launches counted in the
-           "high" run), then one timed day per mode; the giant T213L30 and MiMA T42L25
+           not equal to "highest"'s (tf32_product's launches counted in the
+           "high" run: the main path), then one timed day per mode and 2
+           profiled steps (launches per step by mode, the "dft" and
+           "legendre" device ms); the giant T213L30 and MiMA T42L25
            (sw_flux once per step) 3 steps at "high" against the card's
            "highest" within HIGH_VS_HIGHEST_FACTOR x the CPU's own float32-
            versus-float64 gap; ms per step by mode for HS and the giant and
@@ -231,8 +238,8 @@ barotropic model in two chained one-day segments, held to the bit (the
 stirring key too) against one direct two-day run. `namelist`,
 `giant_t213_compare`, `precision` and `sharded` run last. Then a `summary` line with each phase's seconds, the
 `{"kernels": [...]}` summary line (sw_flux with its launches_by_path: each
-path's count, the sharded models' per rank; tf32_split with the `precision`
-phase's HS "high" count), the raw `nvidia-smi` name and
+path's count, the sharded models' per rank; tf32_product with the `precision`
+phase's HS "high" count and its giant and MiMA "high" counts), the raw `nvidia-smi` name and
 power limit line, and last `{"ok": true, "device": {...}}`. Any failed phase
 raises, so the script exits non-zero and prints no last line; so does a run
 without a CUDA device.
@@ -240,6 +247,7 @@ without a CUDA device.
 
 from __future__ import annotations
 
+import bisect
 import contextlib
 import dataclasses
 import json
@@ -259,6 +267,7 @@ import torch
 # FP32 (non-tensor-core) operations/s.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+PEAK_TF32_PER_S = 495e12      # the tensor cores, dense
 
 SEED = 20261017
 # the card's 3-step fields and the CPU's float32 and float64 fields of the
@@ -285,6 +294,33 @@ def cuda_time_ms(fn, warmup=3, reps=20):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, reps=20, warmup=3, tries=3, launches=None):
+    """Device ms per fn() call: the card's kernel time under torch.profiler
+    over `reps` calls, which leaves out the host's time between them. A
+    profile that comes back without device time, or with other than
+    `launches` kernel launches a call where the caller knows them, is taken
+    again (the profiler's device records went missing now and then on the
+    card's machine)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        count = sum(e.count for e in rows)
+        if rows and (launches is None or count == launches * reps):
+            return sum(e.self_device_time_total for e in rows) / 1e3 / reps
+    raise RuntimeError(f"device_ms: the profiler saw no device time, or not "
+                       f"{launches} launches a call, in {tries} tries")
 
 
 def nvidia_smi_name_power():
@@ -427,9 +463,9 @@ def check_sw_flux(name, batch, L, cloudy, G=112, dtype=np.float32, reps=20):
 
 
 def phase_kernels():
-    """Each kernel against its plain version: (sw_flux cases, tf32_split
+    """Each kernel against its plain version: (sw_flux cases, tf32_product
     cases), the main path's case first in each."""
-    return sw_flux_cases(), tf32_split_cases()
+    return sw_flux_cases(), tf32_product_cases()
 
 
 def sw_flux_cases():
@@ -693,12 +729,10 @@ def phase_dycore():
     return model, state, ms_per_step
 
 
-def _kernels_under(event):
-    """Device kernels launched inside a profiler range or op, recursively."""
-    out = list(event.kernels)
-    for child in event.cpu_children:
-        out += _kernels_under(child)
-    return out
+def _within(spans, t):
+    """Whether t lies in one of `spans`, a sorted list of (start, end)."""
+    i = bisect.bisect_right(spans, (t, float("inf"))) - 1
+    return i >= 0 and spans[i][0] <= t <= spans[i][1]
 
 
 def profile_stages(model, state, stage_names, steps=2):
@@ -718,15 +752,26 @@ def profile_stages(model, state, stage_names, steps=2):
                and not getattr(e, "is_user_annotation", False)
                and e.key not in ALL_STAGES]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
-    stages = {}
+    # a kernel counts in a range when it starts within the range's span on
+    # the card (one stream: the kernels launched inside the range on the
+    # host), which also finds the port's own kernels: launched through
+    # ctypes, they have no ATen op in the trace
+    stages, spans, device_kernels = {}, {}, []
     for e in prof.events():
-        if e.name in stage_names and e.device_type == DeviceType.CPU:
-            st = stages.setdefault(e.name, {"calls": 0, "kernels": {}})
-            st["calls"] += 1
-            for k in _kernels_under(e):
+        if e.device_type == DeviceType.CUDA:
+            if getattr(e, "is_user_annotation", False):
+                spans.setdefault(e.name, []).append((e.time_range.start, e.time_range.end))
+            else:
+                device_kernels.append(e)
+        elif e.name in stage_names:
+            stages.setdefault(e.name, {"calls": 0, "kernels": {}})["calls"] += 1
+    for name, st in stages.items():
+        within = sorted(spans.get(name, ()))
+        for k in device_kernels:
+            if _within(within, k.time_range.start):
                 row = st["kernels"].setdefault(k.name[:80], [0, 0.0])
                 row[0] += 1
-                row[1] += k.duration
+                row[1] += k.time_range.elapsed_us()
     stage_rows = {}
     for name, st in stages.items():
         rows = sorted(st["kernels"].items(), key=lambda kv: -kv[1][1])
@@ -2517,7 +2562,7 @@ def _tf32_off(where):
 
 def _product_inputs(T, L, seed):
     """Seeded float32 inputs of T's four products for L levels, shaped as
-    the main path gives them: {name: (x, axis, table name, fn name, K)}."""
+    the main path gives them: {name: (x, axis, table name, kind, K)}."""
     rng = np.random.default_rng(seed)
     M1, N1 = T.num_fourier + 1, T.num_spherical + 1
     lead = (PRECISION_FIELDS, L)
@@ -2526,11 +2571,27 @@ def _product_inputs(T, L, seed):
     # card's TF32 tensor-core sums round toward zero, so this case shows
     # their bias, which random signs hide
     smooth = (250.0 + r(T.nlat, T.nlon)).astype(np.float32)
-    return {"dft_analysis": (r(T.nlat, T.nlon), -1, "dft_ana", "_dft", T.nlon),
-            "dft_analysis_smooth": (smooth, -1, "dft_ana", "_dft", T.nlon),
-            "legendre_analysis": (r(T.nlat, M1, 2), -3, "Pw", "_analysis", T.nlat),
-            "legendre_synthesis": (r(M1, N1, 2), -2, "P", "_synthesis", N1),
-            "dft_synthesis": (r(T.nlat, 2 * M1), -1, "dft_syn", "_dft", 2 * M1)}
+    return {"dft_analysis": (r(T.nlat, T.nlon), -1, "dft_ana", "dft", T.nlon),
+            "dft_analysis_smooth": (smooth, -1, "dft_ana", "dft", T.nlon),
+            "legendre_analysis": (r(T.nlat, M1, 2), -3, "Pw", "analysis", T.nlat),
+            "legendre_synthesis": (r(M1, N1, 2), -2, "P", "synthesis", N1),
+            "dft_synthesis": (r(T.nlat, 2 * M1), -1, "dft_syn", "dft", 2 * M1)}
+
+
+def _product_errors(x, kind, card, plain, plain_t, mode):
+    """(largest |card - plain|, its largest ratio to sqrt(K') u |x||table| +
+    K' tiny max|x|, the card's mean signed error against the float64
+    product of the same split operands in units of u |x||table|)."""
+    from isca_tpu_torch.spectral import precision as prec
+
+    xs = prec.split(x, prec.DATA_AXIS[kind], mode)
+    k = xs.shape[prec.DATA_AXIS[kind]]          # K' = the parts times the contracted length
+    mag = prec.contract(kind, plain_t.abs(), xs.abs()).double()   # exact FP32: TF32 is off
+    err = (card.double() - plain.double()).abs()
+    scale = np.sqrt(k) * FP32_U * mag + k * FP32_TINY * float(x.abs().max())
+    exact = prec.contract(kind, plain_t.double(), xs.double())
+    signed = ((card.double() - exact) / (FP32_U * mag).clamp_min(1e-300)).mean()
+    return float(err.max()), float((err / scale).max()), float(signed)
 
 
 def _check_products(res, L, mode):
@@ -2543,73 +2604,158 @@ def _check_products(res, L, mode):
     Tc = ttr.make_transforms(res, dtype=torch.float32, precision=mode)
     Th = ttr.make_transforms(res, dtype=torch.float32, device="cpu", precision=mode)
     out = {}
-    for name, (x, axis, table, fn_name, K) in _product_inputs(Tc, L, SEED + L).items():
-        fn = getattr(ttr, fn_name)
+    for name, (x, axis, table, kind, K) in _product_inputs(Tc, L, SEED + L).items():
         xc, xh = torch.as_tensor(x, device="cuda"), torch.as_tensor(x)
-        card = ttr._product(Tc, xc, axis, getattr(Tc, table), getattr(Tc, table + "_x"), fn)
+        card = ttr._product(Tc, xc, kind, getattr(Tc, table), getattr(Tc, table + "_x"))
         _tf32_off(f"{res} {name} at {mode!r}")
-        plain = ttr._product(Th, xh, axis, getattr(Th, table), getattr(Th, table + "_x"), fn)
-        highest = fn(getattr(Tc, table), xc)
-        # |x| |table| over the split operands, exact FP32 (TF32 is off)
-        mag = fn(getattr(Tc, table + "_x").abs(), prec.split(xc, axis, mode).abs())
-        parts = prec.PARTS[mode]
-        err = (card.double().cpu() - plain.double()).abs()
-        scale = (np.sqrt(parts * K) * FP32_U * mag.double()
-                 + parts * K * FP32_TINY * float(xc.abs().max())).cpu()
-        ratio = float((err / scale).max())
+        plain = ttr._product(Th, xh, kind, getattr(Th, table), getattr(Th, table + "_x"))
+        highest = prec.contract(kind, getattr(Tc, table), xc)
+        plain_t = prec.split_table(getattr(Tc, table), prec.TABLE_AXIS[kind], mode)
+        err, ratio, signed = _product_errors(xc, kind, card, plain.to("cuda"), plain_t, mode)
         vs_highest = float((card - highest).abs().max() / highest.abs().max())
-        # the card's signed error against float64, in units of u |x||table|
-        signed = ((card.double() - fn(getattr(Tc, table + "_x").double(),
-                                      prec.split(xc, axis, mode).double()))
-                  / (FP32_U * mag.double()).clamp_min(1e-300))
-        out[name] = {"shape": list(x.shape), "K": K, "parts": parts,
-                     "max_abs_err_vs_plain": float(err.max()),
+        out[name] = {"shape": list(x.shape), "K": K, "parts": prec.PARTS[mode],
+                     "max_abs_err_vs_plain": err,
                      "err_over_sqrtK_u_mag": ratio, "bound_ulps": PRECISION_ULPS,
-                     "mean_signed_err_vs_f64_over_u_mag": float(signed.mean()),
+                     "mean_signed_err_vs_f64_over_u_mag": signed,
                      "max_rel_diff_vs_highest": vs_highest, "ok": ratio <= PRECISION_ULPS}
-        del card, plain, highest, mag
+        del card, plain, highest, plain_t
     return out
 
 
-def check_tf32_split(name, shape, axis, mode):
-    """The split kernel against split_reference on the card (bit for bit: the
-    same integer rounding), both timed, with its memory bound."""
+# the kernel's four products: name -> (kind, table attribute of the transforms)
+TF32_PRODUCTS = {"dft_analysis": ("dft", "dft_ana"), "legendre_analysis": ("analysis", "Pw"),
+                 "legendre_synthesis": ("synthesis", "P"), "dft_synthesis": ("dft", "dft_syn")}
+TF32_PRODUCT_REPS = 20
+TF32_PLAIN_REPS = 5       # the plain "high" product at T213L30 takes ~2.3 ms
+
+
+def _tf32_product_shape(T, name):
+    """The data operand's shape after the batch, as the main path gives it
+    (on a mesh: the rank's band of latitudes, all latitudes of its m block)."""
+    band, M1, N1 = T.lats.shape[0], T.spec_shape[0], T.num_spherical + 1
+    return {"dft_analysis": (band, T.nlon), "legendre_analysis": (T.nlat, M1, 2),
+            "legendre_synthesis": (M1, N1, 2),
+            "dft_synthesis": (band, 2 * (T.num_fourier + 1))}[name]
+
+
+def tf32_product_bound(x, out, t, mode):
+    """(bound ms, "bytes" or "operations", bytes, operations) of one product:
+    x read once, the output written once, the table's hi (and lo) entries
+    outside the skipped triangle read once; 2 operations per term and part
+    product (3 part products at "high", 1 at "default") at the tensor
+    cores' TF32 rate."""
     from isca_tpu_torch.spectral import precision as prec
 
-    rng = np.random.default_rng(SEED)
-    x = torch.as_tensor(rng.standard_normal(shape).astype(np.float32) * 100.0, device="cuda")
-    kernel = lambda: prec.split(x, axis, mode)
-    plain = lambda: prec.split_reference(x, axis, mode)
+    nz = t.nz.cpu().long()
+    if t.kind == "analysis":
+        entries = t.K * int((t.N - nz).clamp_min(0).sum())
+    elif t.kind == "synthesis":
+        entries = t.N * int((t.K - nz).clamp_min(0).sum())
+    else:
+        entries = t.G * t.K * t.N
+    rows = out.numel() // (t.G * t.N)
+    nbytes = 4 * (x.numel() + out.numel() + prec.TABLE_PARTS[mode] * entries)
+    ops = 2 * rows * entries * prec.PARTS[mode]
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_TF32_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), \
+        nbytes, ops
+
+
+def check_tf32_product(case, T, name, mode, x, table=None, timed=True):
+    """The kernel's product `name` of the transforms T at `mode` on x against
+    its plain version on the card (product_reference, exact FP32 products of
+    the same split operands) within PRECISION_ULPS, with its mean signed
+    error against float64; timed beside the plain version, the exact cuBLAS product the port makes at "highest"
+    (library_ms) and, at "default", the TF32 cuBLAS product (device time
+    under torch.profiler, device_ms), its time with CUDA events around
+    each call (wall_ms, the host's launch included), and its bound.
+    `table`: another float32 table of the same layout (the bias cases)."""
+    from isca_tpu_torch.spectral import precision as prec
+
+    kind, attr = TF32_PRODUCTS[name]
+    raw = getattr(T, attr) if table is None else table
+    packed = getattr(T, attr + "_x") if table is None else prec.pack_table(raw, kind, mode)
+    plain_t = prec.split_table(raw, prec.TABLE_AXIS[kind], mode)
+    kernel = lambda: prec.product(x, kind, packed, mode)
+    plain = lambda: prec.product_reference(x, kind, plain_t, mode)
+    before = prec.product.launches
     out = kernel()
     torch.cuda.synchronize()
+    launched = prec.product.launches - before
     ref = plain()
-    equal = bool(torch.equal(out, ref))
-    parts = prec.PARTS[mode]
-    nbytes = 4 * x.numel() * (1 + parts)
-    case = dict(case=name, shape=list(shape), axis=axis, mode=mode, parts=parts,
-                max_abs_err=float((out - ref).abs().max()), bit_equal=equal,
-                ms=cuda_time_ms(kernel), plain_ms=cuda_time_ms(plain),
-                bound_ms=1e3 * nbytes / PEAK_BYTES_PER_S, bound_by="bytes", ok=equal)
-    emit({"phase": "kernels", "kernel": "tf32_split", **case})
-    if not equal:
-        raise RuntimeError(f"tf32_split {name}: kernel differs from its plain version")
-    return case
+    _tf32_off(f"tf32_product {case}")
+    err, ratio, signed = _product_errors(x, kind, out, ref, plain_t, mode)
+    finite = bool(torch.isfinite(out).all())
+    args = prec.launch_args(x, kind, packed)
+    row = dict(case=case, product=name, kind=kind, mode=mode, shape=list(x.shape),
+               contiguous=x.is_contiguous(), K=packed.K, N=packed.N, groups=packed.G,
+               rows=args.rows, grid=list(args.plan.grid), load=args.load,
+               max_abs_err=err, err_over_sqrtK_u_mag=ratio, bound_ulps=PRECISION_ULPS,
+               mean_signed_err_vs_f64_over_u_mag=signed, launches_per_call=launched)
+    if timed:
+        def tf32_cublas():
+            with prec.tf32_products(x.device):
+                return prec.contract(kind, raw, x)
+        bound_ms, bound_by, nbytes, ops = tf32_product_bound(x, out, packed, mode)
+        row.update(ms=device_ms(kernel, TF32_PRODUCT_REPS, launches=1),
+                   wall_ms=cuda_time_ms(kernel),
+                   plain_ms=device_ms(plain, TF32_PLAIN_REPS),
+                   library_ms=device_ms(lambda: prec.contract(kind, raw, x), TF32_PRODUCT_REPS),
+                   bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, operations=ops)
+        if mode == "default":
+            row["tf32_library_ms"] = device_ms(tf32_cublas, TF32_PRODUCT_REPS)
+        _tf32_off(f"tf32_product {case} timing")
+    row["ok"] = ratio <= PRECISION_ULPS and finite and launched == 1
+    emit({"phase": "kernels", "kernel": "tf32_product", **row})
+    if not row["ok"]:
+        raise RuntimeError(f"tf32_product {case}: beyond {PRECISION_ULPS} (ratio {ratio}), "
+                           f"non-finite ({not finite}) or {launched} launches")
+    return row
 
 
-def tf32_split_cases():
-    """The split at the products of HS T85L25 and the giant's T213L30 (3
-    fields of all levels): the first case is the main path's."""
+def tf32_product_cases():
+    """The kernel at the four products of HS T85L25 and the giant's T213L30
+    (3 fields of all levels, both modes; the first case is the main
+    path's), rank 1 of 2's m block and latitude band at T85L25 (the band a
+    non-contiguous slice of the whole grid), the ragged T42L25 (K and n no
+    multiples of 8), and at "high" with a positive table and positive x,
+    whose sums all add: the cases that show the tensor cores' bias."""
+    from isca_tpu_torch.parallel.mesh import Mesh
+    from isca_tpu_torch.spectral import transforms as ttr
+
+    rng = np.random.default_rng(SEED)
+    normal = lambda shape: torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                                           device="cuda")
     cases = []
-    for res, L, nlat, nlon, M1, N1 in (("T85", 25, 128, 256, 86, 87),
-                                        ("T213", 30, 320, 640, 214, 215)):
+    for res, L in (("T85", 25), ("T213", 30), ("T42", 25)):
         lead = (PRECISION_FIELDS, L)
-        for name, shape, axis in (("dft_analysis", (nlat, nlon), -1),
-                                  ("legendre_analysis", (nlat, M1, 2), -3),
-                                  ("legendre_synthesis", (M1, N1, 2), -2),
-                                  ("dft_synthesis", (nlat, 2 * M1), -1)):
-            for mode in PRECISION_MODES:
-                cases.append(check_tf32_split(f"{res}L{L}_{name}_{mode}", lead + shape,
-                                              axis, mode))
+        for mode in PRECISION_MODES:
+            T = ttr.make_transforms(res, dtype=torch.float32, precision=mode)
+            for name in TF32_PRODUCTS:
+                cases.append(check_tf32_product(f"{res}L{L}_{name}_{mode}", T, name, mode,
+                                                normal(lead + _tf32_product_shape(T, name))))
+            del T
+    lead = (PRECISION_FIELDS, 25)
+    mesh = Mesh(group=None, rank=1, size=2, backend="nccl", device=torch.device("cuda"))
+    for mode in PRECISION_MODES:
+        T = ttr.make_transforms("T85", dtype=torch.float32, precision=mode, mesh=mesh)
+        lat = slice(T.lat_start, T.lat_start + T.lats.shape[0])
+        for name in TF32_PRODUCTS:
+            x = normal(lead + _tf32_product_shape(T, name))
+            if name == "dft_analysis":      # the band cut from the whole grid
+                x = normal(lead + (T.nlat, T.nlon))[..., lat, :]
+            cases.append(check_tf32_product(f"T85L25_rank1of2_{name}_{mode}", T, name, mode,
+                                            x))
+    T = ttr.make_transforms("T85", dtype=torch.float32, precision="high")
+    for name in TF32_PRODUCTS:
+        x = normal(lead + _tf32_product_shape(T, name)).abs() + 0.5
+        cases.append(check_tf32_product(f"T85L25_{name}_high_positive", T, name, "high", x,
+                                        table=getattr(T, TF32_PRODUCTS[name][1]).abs(),
+                                        timed=False))
+    T = ttr.make_transforms("T213", dtype=torch.float32, precision="high")
+    x = normal((PRECISION_FIELDS, 30) + _tf32_product_shape(T, "dft_analysis")).abs() + 0.5
+    cases.append(check_tf32_product("T213L30_dft_analysis_high_positive", T, "dft_analysis",
+                                    "high", x, table=T.dft_ana.abs(), timed=False))
     return cases
 
 
@@ -2645,7 +2791,8 @@ def phase_precision():
     against the card's "highest", ms per step by mode, the TF32 switch after
     every call, the "highest" runs equal to the earlier phases' to the bit,
     and the port's Held-Suarez gate at T42 with its fewest steps. Returns the
-    tf32_split launches of the HS "high" run."""
+    tf32_product launches by path: the HS "high" run (the main path), the
+    giant's and MiMA's "high" runs."""
     from isca_tpu_torch import climate_gate
     from isca_tpu_torch.models.giant import giant_planet_model
     from isca_tpu_torch.models.moist import GreyMoistModel
@@ -2669,17 +2816,17 @@ def phase_precision():
     # Held-Suarez T85L25, 3 steps at each mode against the CPU's run of that
     # mode by the 3x rule; "highest" again, equal to the dycore phase's
     card_ref, _, cpu64 = COMPARE_REFS["held_suarez"]
-    hs, ms_hs = {}, {}
+    hs, ms_hs, hs_stages = {}, {}, {}
+    launches = {}
     for mode in ("highest",) + PRECISION_MODES:
-        if mode == "high":
-            torch.cuda.synchronize()
-            prec.split.launches = 0
+        torch.cuda.synchronize()
+        prec.product.launches = 0
         model, state, gpu = _hs_steps(mode, None)
         torch.cuda.synchronize()
-        if mode == "high":
-            split_launches = prec.split.launches
-            if split_launches == 0:
-                raise RuntimeError("precision: HS at 'high' launched no tf32_split")
+        launches[f"precision_hs_T85L25_{mode}"] = prec.product.launches
+        if (prec.product.launches == 0) != (mode == "highest"):
+            raise RuntimeError(f"precision: HS at {mode!r} launched tf32_product "
+                               f"{prec.product.launches} times in {HS_COMPARE_STEPS} steps")
         _tf32_off(f"HS steps at {mode!r}")
         if mode == "highest":
             differ = _bit_equal(gpu, card_ref)
@@ -2728,13 +2875,25 @@ def phase_precision():
                                    f"run of that mode beyond the asserted bound: {compare}")
         state, _, runs = _timed_runs(model, state, 10, PRECISION_HS_TIMED_STEPS, 1)
         ms_hs[mode] = runs[0]
+        prec.product.launches = 0
+        kernels, _, stage_rows, _ = profile_stages(model, state, ("dft", "legendre"))
+        hs_stages[mode] = {
+            "launches_per_step": sum(e.count for e in kernels) / 2,
+            "tf32_product_launches_per_step": prec.product.launches / 2,
+            **{k: {f: v[f] for f in ("device_ms_per_step", "launches_per_step")}
+               for k, v in stage_rows.items()}}
         _tf32_off(f"HS timed run at {mode!r}")
         del model, state
+    first = launches["precision_hs_T85L25_high"]
     emit({"phase": "precision", "part": "held_suarez", "resolution": "T85", "levels": 25,
           "compare_steps": HS_COMPARE_STEPS, "tolerance_factor": HS_TOL_FACTOR,
           "modes": hs, "ms_per_step": ms_hs, "timed_steps": PRECISION_HS_TIMED_STEPS,
-          "tf32_split_launches_high": split_launches,
-          "tf32_split_launches_per_step": split_launches / HS_COMPARE_STEPS})
+          "tf32_product_launches_high": first,
+          "tf32_product_launches_per_step_high": first / HS_COMPARE_STEPS,
+          "profiled_steps": hs_stages,
+          "rule_3x_mode_gap_fails_high": len(hs["high"]["rule_3x_mode_gap_fails"]),
+          "tf32_split_launches_high": 0,
+          "note": "no tf32_split kernel: tf32_product splits x as it loads it"})
 
     # the giant T213L30: "high" held to the card's "highest", ms per step and
     # the dft and legendre ranges by mode
@@ -2742,7 +2901,12 @@ def phase_precision():
     giant, ms_giant, stages = {}, {}, {}
     for mode in ("highest",) + PRECISION_MODES:
         model = giant_planet_model(dtype=torch.float32, transform_precision=mode, **GIANT_BIG)
+        torch.cuda.synchronize()
+        prec.product.launches = 0
         gpu, _, state = _diag_compare_run(model, model.initial_state(), GIANT_FIELDS)
+        torch.cuda.synchronize()
+        if mode == "high":
+            launches["precision_giant_T213L30_high"] = prec.product.launches
         _tf32_off(f"giant steps at {mode!r}")
         if mode == "highest":
             differ = _bit_equal(gpu, giant_ref)
@@ -2778,22 +2942,25 @@ def phase_precision():
     for mode in ("highest", "high"):
         torch.cuda.synchronize()
         rrtmg_sw.sw_flux_solve.launches = 0
+        prec.product.launches = 0
         gpu = _mima_compare_run(GreyMoistModel(mima_config(torch.float32, precision=mode)))[0]
         torch.cuda.synchronize()
-        launches = rrtmg_sw.sw_flux_solve.launches
+        sw = rrtmg_sw.sw_flux_solve.launches
         _tf32_off(f"MiMA steps at {mode!r}")
-        if launches != FR_COMPARE_STEPS:
-            raise RuntimeError(f"precision: MiMA at {mode!r} launched sw_flux {launches} "
+        if sw != FR_COMPARE_STEPS:
+            raise RuntimeError(f"precision: MiMA at {mode!r} launched sw_flux {sw} "
                                f"times in {FR_COMPARE_STEPS} steps")
         if mode == "highest":
             differ = _bit_equal(gpu, mima_ref)
             if differ:
                 raise RuntimeError(f"precision: MiMA 'highest' differs from the mima "
                                    f"phase's run in {differ}")
-            mima[mode] = {"bit_equal_to_mima_phase": True, "sw_flux_launches": launches}
+            mima[mode] = {"bit_equal_to_mima_phase": True, "sw_flux_launches": sw}
             continue
+        launches["precision_mima_T42L25_high"] = prec.product.launches
         compare, ok = _vs_highest(gpu, mima_ref, m32, m64, MIMA_FIELDS)
-        mima[mode] = {"vs_highest": compare, "ok": ok, "sw_flux_launches": launches}
+        mima[mode] = {"vs_highest": compare, "ok": ok, "sw_flux_launches": sw,
+                      "tf32_product_launches": prec.product.launches}
         if not ok:
             raise RuntimeError(f"precision: MiMA at 'high' differs from 'highest' beyond "
                                f"{HIGH_VS_HIGHEST_FACTOR}x the gap: {compare}")
@@ -2815,7 +2982,7 @@ def phase_precision():
                        for k, v in results.items()},
           "note": "criteria printed, not asserted: 512 steps spin nothing up",
           "phase_seconds": time.perf_counter() - t_phase})
-    return split_launches
+    return launches
 
 
 def phase_sharded(smi):
@@ -2877,7 +3044,7 @@ def _run_phases(kind, smi, cpu_refs, t_start):
     """Every phase after the build, in order; the phase seconds, the kernels
     summary, the nvidia-smi line and the last line."""
     PHASE_SECONDS["device_and_build"] = time.perf_counter() - t_start
-    cases, split_cases = timed_phase("kernels", phase_kernels)
+    cases, product_cases = timed_phase("kernels", phase_kernels)
     launches, model, state, ms_per_step = timed_phase("slice", phase_slice)
     timed_phase("profile", phase_profile, model, state, ms_per_step)
     hs_model, hs_state, hs_ms = timed_phase("dycore", phase_dycore)
@@ -2900,7 +3067,7 @@ def _run_phases(kind, smi, cpu_refs, t_start):
     del hs_model, hs_state, fr_model, fr_state, model, state
     namelist_launches = timed_phase("namelist", phase_namelist, cpu_refs)
     timed_phase("giant_t213_compare", phase_giant_t213_compare, cpu_refs)
-    split_launches = timed_phase("precision", phase_precision)
+    product_launches = timed_phase("precision", phase_precision)
     sharded_launches = timed_phase("sharded", phase_sharded, smi)
     emit({"phase": "summary", "phase_seconds": PHASE_SECONDS,
           "cpu_reference_seconds": {k: f.result()["seconds"] for k, f in cpu_refs.items()},
@@ -2921,16 +3088,16 @@ def _run_phases(kind, smi, cpu_refs, t_start):
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
         "library_ms": None,
         "ok": all(c["ok"] for c in cases), "cases": cases}, {
-        "name": "tf32_split", "route": "cuda",
-        "source": "isca_tpu_torch/csrc/tf32_split.cu",
+        "name": "tf32_product", "route": "cuda",
+        "source": "isca_tpu_torch/csrc/tf32_product.cu",
         "replaces": "isca_tpu/spectral/transforms.py:161",
-        "launches": split_launches,
-        "launches_by_path": {"precision_hs_T85L25_high": split_launches},
-        "max_abs_err": max(c["max_abs_err"] for c in split_cases),
-        "ms": split_cases[0]["ms"], "plain_ms": split_cases[0]["plain_ms"],
-        "bound_ms": split_cases[0]["bound_ms"], "bound_by": split_cases[0]["bound_by"],
-        "library_ms": None,
-        "ok": all(c["ok"] for c in split_cases), "cases": split_cases}]})
+        "launches": product_launches["precision_hs_T85L25_high"],
+        "launches_by_path": product_launches,
+        "max_abs_err": max(c["max_abs_err"] for c in product_cases),
+        "ms": product_cases[0]["ms"], "plain_ms": product_cases[0]["plain_ms"],
+        "bound_ms": product_cases[0]["bound_ms"], "bound_by": product_cases[0]["bound_by"],
+        "library_ms": product_cases[0]["library_ms"],
+        "ok": all(c["ok"] for c in product_cases), "cases": product_cases}]})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

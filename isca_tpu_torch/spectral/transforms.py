@@ -7,11 +7,13 @@ Port of isca_tpu/spectral/transforms.py, single-device path (reference:
 * The Legendre analysis/synthesis are dense contractions over precomputed
   Pbar / Pbar*w tables, and the longitude Fourier stage is a dense real-DFT
   matrix product (or `torch.fft.rfft` with fourier_method="fft"): batched
-  matrix products on cuBLAS. Their precision is the transforms' `precision`
+  matrix products. Their precision is the transforms' `precision`
   (isca_tpu's transform_precision, spectral/precision.py): "highest" is
-  exact FP32 (TF32 is off, isca_tpu_torch/__init__.py), "high" 3xTF32 and
-  "default" one TF32 pass, each with the data operand split at the call and
-  the constant tables split once, here; float64 and the FFT ignore the mode.
+  exact FP32 on cuBLAS (TF32 is off, isca_tpu_torch/__init__.py); "high"
+  (3xTF32) and "default" (one TF32 pass) run on the card as one launch of
+  the tf32_product kernel a product, which splits the data operand as it
+  loads it, against constant tables split and packed once, here; float64
+  and the FFT ignore the mode.
 * Complex values never meet a complex matrix product: the tables are real,
   so each contraction runs on the split real/imaginary parts (a complex
   cuBLAS product sums in another order), as isca_tpu does.
@@ -117,10 +119,11 @@ class SphericalTransforms:
     m_start: int = 0        # global index of this rank's first m row
     lat_start: int = 0      # global index of this rank's first latitude
     # the products' precision ("highest", "high" or "default"), and the
-    # constant tables split for it along their contracted axis (None when
-    # the products are exact: "highest" or float64): dft_ana_x
-    # (parts*nlon, 2(M+1)), dft_syn_x (parts*2(M+1), nlon), Pw_x
-    # (parts*nlat, M+1, N+2), P_x (nlat, M+1, parts*(N+2))
+    # constant tables split for it (None when the products are exact:
+    # "highest" or float64): on a CUDA device precision.PackedTable's, else
+    # split along their contracted axis, dft_ana_x (parts*nlon, 2(M+1)),
+    # dft_syn_x (parts*2(M+1), nlon), Pw_x (parts*nlat, M+1, N+2), P_x
+    # (nlat, M+1, parts*(N+2))
     precision: str = "highest"
     dft_ana_x: Any = None
     dft_syn_x: Any = None
@@ -342,12 +345,13 @@ def make_transforms(
     dft_syn = np.concatenate([dft_cos_i, dft_sin_i], axis=0)
     split = {}
     if _precision.splits(precision, dtype):
-        # rounded on the host once, as the plain version rounds
-        cut = lambda x, axis: _precision.split_table(
+        # rounded on the host once, as the plain version rounds; packed for
+        # the kernel on a CUDA device (spectral/precision.py)
+        cut = lambda x, kind: _precision.table_for(
             torch.as_tensor(np.ascontiguousarray(x, np.float64)).to(torch.float32),
-            axis, precision).to(device)
-        split = dict(dft_ana_x=cut(dft_ana, 0), dft_syn_x=cut(dft_syn, 0),
-                     Pw_x=cut(Pw, 0), P_x=cut(P, 2))
+            kind, precision, device)
+        split = dict(dft_ana_x=cut(dft_ana, "dft"), dft_syn_x=cut(dft_syn, "dft"),
+                     Pw_x=cut(Pw, "analysis"), P_x=cut(P, "synthesis"))
     return SphericalTransforms(
         truncation=truncation,
         num_fourier=M,
@@ -398,28 +402,15 @@ def make_transforms(
 # The DFT and Legendre products at the transforms' precision.
 # ---------------------------------------------------------------------------
 
-def _dft(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    return torch.matmul(x, table)
-
-
-def _analysis(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    return torch.einsum("jmn,...jmr->...mnr", table, x)
-
-
-def _synthesis(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    return torch.einsum("jmn,...mnr->...jmr", table, x)
-
-
-def _product(T: SphericalTransforms, x: torch.Tensor, axis: int,
-             table: torch.Tensor, table_x, fn) -> torch.Tensor:
-    """fn(table, x), a product contracting x's `axis`, at T's precision:
-    exact with the table as it is, else on x split along `axis` against the
-    table's split `table_x`, with TF32 on for this product alone."""
+def _product(T: SphericalTransforms, x: torch.Tensor, kind: str,
+             table: torch.Tensor, table_x) -> torch.Tensor:
+    """The product of `kind` (spectral/precision.py KINDS) contracting x
+    with `table`, at T's precision: exact with the table as it is, else
+    against the table's split `table_x` (on a CUDA tensor one launch of the
+    tf32_product kernel)."""
     if table_x is None:
-        return fn(table, x)
-    xs = _precision.split(x.contiguous(), axis, T.precision)
-    with _precision.tf32_products(xs.device):
-        return fn(table_x, xs)
+        return _precision.contract(kind, table, x)
+    return _precision.product(x, kind, table_x, T.precision)
 
 
 # ---------------------------------------------------------------------------
@@ -441,7 +432,7 @@ def grid_to_fourier(T: SphericalTransforms, g: torch.Tensor) -> torch.Tensor:
                 F = torch.nn.functional.pad(F, (0, T.num_fourier - T.num_fourier_true))
             return F
         M1 = T.num_fourier + 1
-        FF = _product(T, g, -1, T.dft_ana, T.dft_ana_x, _dft)
+        FF = _product(T, g, "dft", T.dft_ana, T.dft_ana_x)
         return torch.complex(FF[..., :M1], FF[..., M1:])
 
 
@@ -452,8 +443,8 @@ def fourier_to_grid(T: SphericalTransforms, F: torch.Tensor) -> torch.Tensor:
             nfreq = T.nlon // 2 + 1
             Ffull = torch.nn.functional.pad(F, (0, nfreq - F.shape[-1]))
             return torch.fft.irfft(Ffull * T.nlon, n=T.nlon, dim=-1).to(T.dtype)
-        return _product(T, torch.cat([F.real, F.imag], dim=-1), -1, T.dft_syn,
-                        T.dft_syn_x, _dft).to(T.dtype)
+        return _product(T, torch.cat([F.real, F.imag], dim=-1), "dft", T.dft_syn,
+                        T.dft_syn_x).to(T.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -467,7 +458,7 @@ def fourier_to_spec(T: SphericalTransforms, F: torch.Tensor) -> torch.Tensor:
     batched product over the split (re, im) parts (trailing axis r).
     """
     with record_function("legendre"):
-        ss = _product(T, torch.view_as_real(F), -3, T.Pw, T.Pw_x, _analysis)
+        ss = _product(T, torch.view_as_real(F), "analysis", T.Pw, T.Pw_x)
         return torch.view_as_complex(ss.contiguous())
 
 
@@ -475,7 +466,7 @@ def spec_to_fourier(T: SphericalTransforms, s: torch.Tensor) -> torch.Tensor:
     """Legendre synthesis: F(j,m) = sum_n s_mn Pbar_mn(j), as one real
     batched product over the split (re, im) parts."""
     with record_function("legendre"):
-        FF = _product(T, torch.view_as_real(s), -2, T.P, T.P_x, _synthesis)
+        FF = _product(T, torch.view_as_real(s), "synthesis", T.P, T.P_x)
         return torch.view_as_complex(FF.contiguous())
 
 
@@ -534,7 +525,7 @@ def _analysis_send(T, g):
     n, lead = T.mesh.size, g.shape[:-2]
     k = len(lead)
     with record_function("dft"):
-        FF = _product(T, g, -1, T.dft_ana, T.dft_ana_x, _dft)   # (..., lat_band, 2 (M+1))
+        FF = _product(T, g, "dft", T.dft_ana, T.dft_ana_x)   # (..., lat_band, 2 (M+1))
     FF = FF.reshape(*lead, g.shape[-2], 2, n, T.spec_shape[0])
     FF = FF.permute(k + 2, *range(k), k, k + 3, k + 1)
     return T.mesh.all_to_all(FF, async_op=True) + (lead,)
@@ -545,7 +536,7 @@ def _analysis_recv(T, out, work, lead):
     work.wait()
     F = out.movedim(0, len(lead)).reshape(*lead, T.nlat, T.spec_shape[0], 2)
     with record_function("legendre"):
-        ss = _product(T, F, -3, T.Pw, T.Pw_x, _analysis)
+        ss = _product(T, F, "analysis", T.Pw, T.Pw_x)
     return torch.view_as_complex(ss.contiguous())
 
 
@@ -554,7 +545,7 @@ def _synthesis_send(T, s):
     transpose: rank r gets band r, as (size, ..., lat_band, m_block, 2)."""
     n, lead = T.mesh.size, s.shape[:-2]
     with record_function("legendre"):
-        FF = _product(T, torch.view_as_real(s), -2, T.P, T.P_x, _synthesis)
+        FF = _product(T, torch.view_as_real(s), "synthesis", T.P, T.P_x)
     FF = FF.reshape(*lead, n, T.nlat // n, T.spec_shape[0], 2).movedim(len(lead), 0)
     return T.mesh.all_to_all(FF, async_op=True) + (lead,)
 
@@ -567,7 +558,7 @@ def _synthesis_recv(T, out, work, lead):
     F = out.permute(*range(1, k + 1), k + 1, k + 3, 0, k + 2)
     F = F.reshape(*lead, out.shape[k + 1], 2 * (T.num_fourier + 1))
     with record_function("dft"):
-        return _product(T, F, -1, T.dft_syn, T.dft_syn_x, _dft).to(T.dtype)
+        return _product(T, F, "dft", T.dft_syn, T.dft_syn_x).to(T.dtype)
 
 
 # ---------------------------------------------------------------------------

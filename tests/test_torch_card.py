@@ -16,10 +16,14 @@ boundary-layer schemes) at T21 on the card against the CPU at float32;
 2 gloo ranks sharing the card (HS steps against the card alone, and the
 MiMA test case's sw_flux on each rank's band against its plain version),
 the native library, and exp/namelists/mima.nml built on the card through
-the port's namelist reader; the transform precision modes (the tf32_split
-kernel bit for bit against its plain version, each TF32 product against
-its plain version, the cuBLAS TF32 switch restored after every call, and a "highest"
-Held-Suarez step bit-equal before and after a "high" one). Every test here
+the port's namelist reader; the transform precision modes (the plain split
+on the card bit for bit against the CPU's; the tf32_product kernel against
+its plain version at every product, both modes, T21 to T213, a ragged
+contraction, a mesh rank's tables and a non-contiguous band, a NaN input,
+its launch counter and the tensors it refuses; each "high" and "default"
+transform product against the CPU's plain version, the cuBLAS TF32 switch
+restored after every call, and a "highest" Held-Suarez step bit-equal
+before and after a "high" one). Every test here
 needs a CUDA device and skips without one.
 
 This file imports torch, numpy and isca_tpu_torch only, so it runs where JAX
@@ -826,25 +830,166 @@ def test_native_library_builds_on_the_card_machine():
 @pytest.mark.parametrize("mode", ["high", "default"])
 @pytest.mark.parametrize("shape,axis", [((3, 25, 128, 256), -1), ((2, 7, 33, 5, 2), -3),
                                         ((5, 86, 87, 2), -2), ((1,), 0)])
-def test_tf32_split_kernel_equals_plain(mode, shape, axis):
+def test_tf32_split_on_the_card_equals_cpu(mode, shape, axis):
+    """The plain split (the chip_smoke and card tests' reference; no product
+    of the port calls it since the kernel splits as it loads) on a CUDA
+    tensor equals the CPU's bit for bit, inf and NaN included."""
     from isca_tpu_torch.spectral import precision as prec
 
     rng = np.random.default_rng(4)
     x = rng.standard_normal(shape).astype(np.float32) * 10.0 ** rng.uniform(-30, 30, shape)
     x.reshape(-1)[:3] = [np.inf, np.nan, 3.4028235e38][:x.size]
     xc = torch.as_tensor(x.astype(np.float32), device="cuda")
-    before = prec.split.launches
     out = prec.split(xc, axis, mode)
-    torch.cuda.synchronize()
-    assert prec.split.launches == before + 1
+    assert out.is_cuda
     ref = prec.split_reference(xc.cpu(), axis, mode)
     np.testing.assert_array_equal(out.cpu().numpy().view(np.uint32)[np.isfinite(ref.numpy())],
                                   ref.numpy().view(np.uint32)[np.isfinite(ref.numpy())])
     assert torch.equal(out.cpu().isnan(), ref.isnan())
-    with pytest.raises(ValueError, match="contiguous"):
-        prec.split(torch.zeros(4, 6, device="cuda").t(), -1, mode)
     with pytest.raises(TypeError, match="float32"):
         prec.split(xc.double(), axis, mode)
+
+
+TF32_PRODUCTS = {"dft_analysis": ("dft", "dft_ana"), "legendre_analysis": ("analysis", "Pw"),
+                 "legendre_synthesis": ("synthesis", "P"), "dft_synthesis": ("dft", "dft_syn")}
+
+
+def _product_shape(T, name):
+    band, M1, N1 = T.lats.shape[0], T.spec_shape[0], T.num_spherical + 1
+    return {"dft_analysis": (band, T.nlon), "legendre_analysis": (T.nlat, M1, 2),
+            "legendre_synthesis": (M1, N1, 2),
+            "dft_synthesis": (band, 2 * (T.num_fourier + 1))}[name]
+
+
+def _kernel_against_plain(T, name, mode, x):
+    """One launch of the tf32_product kernel on x against its plain version
+    on the card (the same split, exact FP32 products) within 8 (sqrt(K') u
+    |x||table| + K' tiny max|x|): the two differ by the order and rounding
+    of their sums (the tensor cores sum 32 terms toward zero, then FP32 to
+    nearest) and by the subnormal operands the tensor cores flush."""
+    from isca_tpu_torch.spectral import precision as prec
+
+    kind, attr = TF32_PRODUCTS[name]
+    plain_t = prec.split_table(getattr(T, attr), prec.TABLE_AXIS[kind], mode)
+    before = prec.product.launches
+    out = prec.product(x, kind, getattr(T, attr + "_x"), mode)
+    torch.cuda.synchronize()
+    assert prec.product.launches == before + 1
+    ref = prec.product_reference(x, kind, plain_t, mode)
+    xs = prec.split(x, prec.DATA_AXIS[kind], mode)
+    k = xs.shape[prec.DATA_AXIS[kind]]
+    mag = prec.contract(kind, plain_t.abs(), xs.abs()).double()
+    bound = 8.0 * (np.sqrt(k) * 2.0 ** -24 * mag + k * 2.0 ** -126 * float(x.abs().max()))
+    assert out.shape == ref.shape and out.dtype == torch.float32
+    assert ((out.double() - ref.double()).abs() <= bound).all(), name
+    return out, ref
+
+
+@pytest.mark.parametrize("mode", ["high", "default"])
+@pytest.mark.parametrize("res", ["T21", "T42", "T85", "T170", "T213"])
+def test_tf32_product_kernel_against_plain(mode, res):
+    from isca_tpu_torch.spectral import transforms as ttr
+
+    T = ttr.make_transforms(res, dtype=torch.float32, precision=mode)
+    rng = np.random.default_rng(4)
+    for name in TF32_PRODUCTS:
+        x = torch.as_tensor(rng.standard_normal((3, 6) + _product_shape(T, name))
+                            .astype(np.float32), device="cuda")
+        _kernel_against_plain(T, name, mode, x)
+
+
+@pytest.mark.parametrize("mode", ["high", "default"])
+def test_tf32_product_ragged_and_mesh_band(mode):
+    """K and n no multiple of 8 (T13 on a 40 x 22 grid: K = 28, 15, 22),
+    and rank 1 of 2's tables at T42 with its latitude band cut from the
+    whole grid (not contiguous), levels cut from a larger batch, no rows at
+    all, and a batch of one field."""
+    from isca_tpu_torch.parallel.mesh import Mesh
+    from isca_tpu_torch.spectral import precision as prec
+    from isca_tpu_torch.spectral import transforms as ttr
+
+    rng = np.random.default_rng(5)
+    normal = lambda shape: torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                                           device="cuda")
+    T = ttr.make_transforms(13, nlon=40, nlat=22, dtype=torch.float32, precision=mode)
+    for name in TF32_PRODUCTS:
+        _kernel_against_plain(T, name, mode, normal((2, 3) + _product_shape(T, name)))
+    mesh = Mesh(group=None, rank=1, size=2, backend="nccl", device=torch.device("cuda"))
+    T = ttr.make_transforms("T42", dtype=torch.float32, precision=mode, mesh=mesh)
+    band = normal((4, 5, T.nlat, T.nlon))[1:3, :, T.lat_start:T.lat_start + T.nlat // 2]
+    assert not band.is_contiguous()
+    _kernel_against_plain(T, "dft_analysis", mode, band)
+    # levels cut from a larger batch: two strides cannot address the rows,
+    # so the wrapper makes x contiguous first
+    levels = normal((4, 6, T.lats.shape[0], T.nlon))[:, 1:4]
+    _kernel_against_plain(T, "dft_analysis", mode, levels)
+    empty = prec.product(normal((0, T.lats.shape[0], T.nlon)), "dft", T.dft_ana_x, mode)
+    assert empty.shape == (0, T.lats.shape[0], 2 * (T.num_fourier + 1))
+    for name in TF32_PRODUCTS:
+        _kernel_against_plain(T, name, mode, normal((1,) + _product_shape(T, name)))
+
+
+def test_tf32_product_nan_input():
+    """A NaN of x reaches every output whose table entries it meets, as in
+    the plain version. Where it meets only the zeros of the skipped
+    triangle (m = 85 at T85: n < 64 in the analysis, n < 64 in the
+    synthesis' contraction), the plain version gives NaN and the kernel 0
+    (analysis) or a finite value (synthesis)."""
+    from isca_tpu_torch.spectral import precision as prec
+    from isca_tpu_torch.spectral import transforms as ttr
+
+    T = ttr.make_transforms("T85", dtype=torch.float32, precision="high")
+    M1, N1 = T.num_fourier + 1, T.num_spherical + 1
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((2, T.nlat, M1, 2)).astype(np.float32)
+    x[0, 5, 3, 0] = np.nan                       # m = 3: meets nonzero Pw entries
+    x[1, 0, M1 - 1, 1] = np.nan                  # m = 85: n < 85 are zeros
+    xc = torch.as_tensor(x, device="cuda")
+    out = prec.product(xc, "analysis", T.Pw_x, "high")
+    ref = prec.product_reference(xc, "analysis", prec.split_table(T.Pw, 0, "high"), "high")
+    assert torch.equal(out[0, 3, 3:, 0].isnan(), ref[0, 3, 3:, 0].isnan())
+    assert out[0, 3, 3:, 0].isnan().all()
+    assert ref[1, M1 - 1, :64, 1].isnan().all() and (out[1, M1 - 1, :64, 1] == 0).all()
+    assert out[1, M1 - 1, 64:, 1].isnan().all()
+    # the grid-side products have no skipped zeros: NaN where the plain one has it
+    g = rng.standard_normal((2, T.nlat, T.nlon)).astype(np.float32)
+    g[1, 7, 9] = np.inf
+    gc = torch.as_tensor(g, device="cuda")
+    out = prec.product(gc, "dft", T.dft_ana_x, "high")
+    ref = prec.product_reference(gc, "dft", prec.split_table(T.dft_ana, 0, "high"), "high")
+    assert torch.equal(out.isnan(), ref.isnan()) and out[1, 7].isnan().any()
+    s = rng.standard_normal((1, M1, N1, 2)).astype(np.float32)
+    s[0, M1 - 1, 0, 0] = np.nan                  # m = 85, n = 0: a skipped tile
+    sc = torch.as_tensor(s, device="cuda")
+    out = prec.product(sc, "synthesis", T.P_x, "high")
+    ref = prec.product_reference(sc, "synthesis", prec.split_table(T.P, 2, "high"), "high")
+    assert ref[0, :, M1 - 1, 0].isnan().all() and torch.isfinite(out[0, :, M1 - 1, 0]).all()
+
+
+def test_tf32_product_takes_only_float32_cuda_tensors():
+    """A float64 CUDA tensor raises before the kernel; a CPU tensor runs the
+    plain version with split_table's layout and refuses a packed table;
+    none of them launches the kernel."""
+    from isca_tpu_torch.spectral import precision as prec
+    from isca_tpu_torch.spectral import transforms as ttr
+
+    T = ttr.make_transforms("T21", dtype=torch.float32, precision="high")
+    Th = ttr.make_transforms("T21", dtype=torch.float32, device="cpu", precision="high")
+    x = torch.zeros(2, T.nlat, T.nlon, device="cuda")
+    before = prec.product.launches
+    with pytest.raises(TypeError, match="float32"):
+        prec.product(x.double(), "dft", T.dft_ana_x, "high")
+    with pytest.raises(TypeError, match="PackedTable"):
+        prec.product(x.cpu(), "dft", T.dft_ana_x, "high")
+    with pytest.raises(TypeError, match="PackedTable"):
+        prec.product(x, "dft", Th.dft_ana_x.cuda(), "high")
+    with pytest.raises(ValueError, match="table"):
+        prec.product(x, "dft", T.dft_ana_x, "default")      # packed for "high"
+    plain = prec.product(x.cpu(), "dft", Th.dft_ana_x, "high")
+    assert plain.device.type == "cpu" and prec.product.launches == before
+    prec.product(x, "dft", T.dft_ana_x, "high")
+    torch.cuda.synchronize()
+    assert prec.product.launches == before + 1
 
 
 @pytest.mark.parametrize("mode", ["high", "default"])
@@ -866,22 +1011,22 @@ def test_tf32_products_match_plain_version(mode, res):
     Th = ttr.make_transforms(res, dtype=torch.float32, device="cpu", precision=mode)
     rng = np.random.default_rng(9)
     M1, N1 = Tc.num_fourier + 1, Tc.num_spherical + 1
-    cases = {"dft_analysis": ((Tc.nlat, Tc.nlon), -1, "dft_ana", ttr._dft, Tc.nlon),
-             "legendre_analysis": ((Tc.nlat, M1, 2), -3, "Pw", ttr._analysis, Tc.nlat),
-             "legendre_synthesis": ((M1, N1, 2), -2, "P", ttr._synthesis, N1),
-             "dft_synthesis": ((Tc.nlat, 2 * M1), -1, "dft_syn", ttr._dft, 2 * M1)}
-    for name, (shape, axis, table, fn, K) in cases.items():
+    cases = {"dft_analysis": ((Tc.nlat, Tc.nlon), "dft", "dft_ana", Tc.nlon),
+             "legendre_analysis": ((Tc.nlat, M1, 2), "analysis", "Pw", Tc.nlat),
+             "legendre_synthesis": ((M1, N1, 2), "synthesis", "P", N1),
+             "dft_synthesis": ((Tc.nlat, 2 * M1), "dft", "dft_syn", 2 * M1)}
+    for name, (shape, kind, table, K) in cases.items():
         x = torch.as_tensor(rng.standard_normal((4, 25) + shape).astype(np.float32))
-        card = ttr._product(Tc, x.cuda(), axis, getattr(Tc, table), getattr(Tc, table + "_x"),
-                            fn)
+        card = ttr._product(Tc, x.cuda(), kind, getattr(Tc, table), getattr(Tc, table + "_x"))
         assert torch.backends.cuda.matmul.allow_tf32 is False
-        plain = ttr._product(Th, x, axis, getattr(Th, table), getattr(Th, table + "_x"), fn)
-        mag = fn(getattr(Th, table + "_x").abs(), prec.split(x, axis, mode).abs())
+        plain = ttr._product(Th, x, kind, getattr(Th, table), getattr(Th, table + "_x"))
+        mag = prec.contract(kind, getattr(Th, table + "_x").abs(),
+                            prec.split(x, prec.DATA_AXIS[kind], mode).abs())
         k = prec.PARTS[mode] * K
         bound = 8.0 * (np.sqrt(k) * 2.0 ** -24 * mag.double()
                        + k * 2.0 ** -126 * float(x.abs().max()))
         assert ((card.cpu().double() - plain.double()).abs() <= bound).all(), name
-        assert not torch.equal(card.cpu(), fn(getattr(Th, table), x)), name
+        assert not torch.equal(card.cpu(), prec.contract(kind, getattr(Th, table), x)), name
 
 
 def test_tf32_switch_restored_after_products_and_errors():
